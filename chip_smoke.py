@@ -7,15 +7,26 @@ Phases, in order; any failure raises and the script exits nonzero:
 
 1. device: the card's name and power limit (``nvidia-smi``);
 2. build: every CUDA kernel of the package, from ``dr4sr_tpu_torch/ops/csrc``;
-3. kernels: each kernel against its plain PyTorch version on the card, at the
-   serving shape and a stress shape, with and without a key-padding mask
-   (one fully masked row per batch), with its time beside the plain version's,
-   one PyTorch library call's and the least time the card could take;
+3. kernels: the attention forward against its plain PyTorch version on the
+   card, at the serving (and training) shape and a stress shape, with and
+   without a key-padding mask (one fully masked row per batch), with its time
+   beside the plain version's, one PyTorch library call's and the least time
+   the card could take;
+3b. the attention backward kernels likewise, against
+   ``flash_attention_bwd_reference``, and the whole ``FlashAttention`` path
+   against autograd through ``mha_reference``;
 4. serve: ``Recommender(device="cuda")`` answers three requests of 1,000
    histories on SASRec at the amazon-toys width (random weights from seed 0),
    through the kernels, and agrees with the same weights on the CPU route;
    then times one-batch requests, and profiles one more pass with
-   ``torch.profiler`` (device time by kernel, host time by op, busy share).
+   ``torch.profiler`` (device time by kernel, host time by op, busy share);
+5. train: ``Trainer(device="cuda").fit()`` for 3 epochs, then ``evaluate()``,
+   on SASRec at the amazon-toys width over a synthetic dataset of
+   amazon-toys' size (19,412 users, 11,925 items), through both kernels:
+   launch counts, a falling loss, validation recall@20 above 5x random; the
+   first step's gradients and 3 Adam steps' losses against the CPU route
+   from the same weights and negatives; a few bf16 steps; timed steps; and
+   a profile of a few steps.
 
 It prints one ``{"kernels": [...]}`` line, then as its last line
 ``{"ok": true, "device": {...}}``. It imports nothing of JAX.
@@ -23,28 +34,41 @@ It prints one ``{"kernels": [...]}`` line, then as its last line
 
 from __future__ import annotations
 
+import copy
 import json
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-from dr4sr_tpu_torch.data.synthetic import markov_sequences
+from dr4sr_tpu_torch.data.dataset import prepare_datasets
+from dr4sr_tpu_torch.data.synthetic import markov_sequences, write_synthetic_dataset
 from dr4sr_tpu_torch.models.base import RecModel
 from dr4sr_tpu_torch.models.sasrec import SASRec
 from dr4sr_tpu_torch.ops import _build
-from dr4sr_tpu_torch.ops.attention import flash_attention, mha_reference
+from dr4sr_tpu_torch.ops.attention import (
+    FlashAttention,
+    flash_attention,
+    flash_attention_bwd,
+    flash_attention_bwd_reference,
+    flash_attention_fwd,
+    mha_reference,
+)
 from dr4sr_tpu_torch.serve import Recommender
+from dr4sr_tpu_torch.train.trainer import Trainer
 
 # H100 SXM published peaks (NVIDIA data sheet): HBM3 bytes/s, and dense
 # FLOP/s for f32 on CUDA cores and for bf16 on tensor cores.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
 ATOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}  # as tests/test_attention.py
+ATOL_BWD = {torch.float32: 3e-4, torch.bfloat16: 8e-2}  # as tests/test_attention.py
+PATH_RTOL = {torch.float32: 0.0, torch.bfloat16: 2.0**-7}  # one bf16 step, relative
 
 # amazon-toys SASRec: configs/{amazon-toys,basemodel,sasrec}.yaml, written out
 NUM_ITEMS = 11925
@@ -57,6 +81,24 @@ CONFIG = {
 BATCH = 256
 TOPK = 20
 SERVE_PASSES = 9  # 9 x 12 one-batch requests: p90 has 10 samples above it
+
+# training at the amazon-toys width: configs/{amazon-toys,basemodel,sasrec}.yaml
+# written out, on a synthetic dataset of amazon-toys' size (19,412 users)
+NUM_USERS = 19412
+TRAIN_CONFIG = {
+    "data": {"dataset": "amazon-toys", "domain_name_list": ["toy"], "max_seq_len": 50,
+             "dataset_class": "general", "train_file": ""},
+    "model": {**CONFIG["model"], "loss_fn": "bce"},
+    "train": {"batch_size": BATCH, "epochs": 3, "optimizer": "adam", "learning_rate": 1e-3,
+              "weight_decay": 0.0, "num_neg": 1, "seed": 2023, "early_stop_mode": "max",
+              "early_stop_patience": 20, "precision": "fp32"},
+    "eval": {"batch_size": 2048, "cutoff": [20, 10], "val_metrics": ["ndcg", "recall"],
+             "test_metrics": ["ndcg", "recall"], "topk": 100},
+}
+# card vs CPU from the same weights and negatives, dropout 0, TF32 off: f32
+# sums run in another order (cuBLAS, the kernels, LayerNorm's reductions)
+GRAD_ATOL = 2e-5
+LOSS_ATOL = 1e-5
 
 # (name, B, H, Lq, Lk, Dh, causal, dtype): the serving shape first; every
 # head dim the kernel is built for, ragged tiles, and Lq != Lk
@@ -92,20 +134,39 @@ def time_ms(fn, reps: int = 21, inner: int = 5) -> float:
     return statistics.median(times)
 
 
+def _unmasked_pairs(pad, lq, lk, causal):
+    """(batch, query, key) triples that this mask leaves unmasked."""
+    pairs = (~pad)[:, None, :].expand(pad.shape[0], lq, lk)
+    if causal:
+        pairs = pairs & torch.ones(lq, lk, dtype=torch.bool, device=pad.device).tril()
+    return int(pairs.sum())
+
+
+def _bound(nbytes, flops, dtype):
+    t_bytes = nbytes / PEAK_BYTES_PER_S
+    t_ops = flops / PEAK_FLOPS[dtype]
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
 def attention_bound_ms(q, k, v, pad, causal):
     """The least time for this call: each input read once and the output
     written once at the HBM rate, or the products that this data needs
     (q·kᵀ and p·v over unmasked pairs) at the dtype's peak."""
     b, h, lq, dh = q.shape
-    lk = k.shape[2]
     nbytes = 2 * q.numel() * q.element_size() + 2 * k.numel() * k.element_size() + pad.numel()
-    pairs = (~pad)[:, None, :].expand(b, lq, lk)
-    if causal:
-        pairs = pairs & torch.ones(lq, lk, dtype=torch.bool, device=q.device).tril()
-    flops = 4 * dh * h * int(pairs.sum())
-    t_bytes = nbytes / PEAK_BYTES_PER_S
-    t_ops = flops / PEAK_FLOPS[q.dtype]
-    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+    flops = 4 * dh * h * _unmasked_pairs(pad, lq, k.shape[2], causal)
+    return _bound(nbytes, flops, q.dtype)
+
+
+def attention_bwd_bound_ms(q, k, pad, causal):
+    """The backward's least time: q, k, v, o, dO, the row statistics and the
+    mask read once and dq, dk, dv written once, or 10·Dh FLOP per unmasked
+    pair and head for the five products (q·kᵀ, dO·vᵀ, pᵀ·dO, ds·k, dsᵀ·q)."""
+    b, h, lq, dh = q.shape
+    es = q.element_size()
+    nbytes = es * 4 * (q.numel() + k.numel()) + 4 * b * h * lq + pad.numel()
+    flops = 10 * dh * h * _unmasked_pairs(pad, lq, k.shape[2], causal)
+    return _bound(nbytes, flops, q.dtype)
 
 
 def check_attention(seed, name, b, h, lq, lk, dh, causal, dtype):
@@ -135,7 +196,7 @@ def check_attention(seed, name, b, h, lq, lk, dh, causal, dtype):
     if causal:
         attend = attend & torch.ones(lq, lk, dtype=torch.bool, device="cuda").tril()
     with torch.no_grad():
-        ms = time_ms(lambda: flash_attention(q, k, v, pad, causal))
+        ms = time_ms(lambda: flash_attention_fwd(q, k, v, pad, causal))
         plain_ms = time_ms(lambda: mha_reference(q, k, v, pad, causal))
         library_ms = time_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=attend))
     bound_ms, bound_by = attention_bound_ms(q, k, v, pad, causal)
@@ -144,6 +205,74 @@ def check_attention(seed, name, b, h, lq, lk, dh, causal, dtype):
             "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
             "bound_ms": bound_ms, "bound_by": bound_by}
     log(f"kernel case {json.dumps(case)}")
+    return case
+
+
+def _max_err(got, want):
+    return max((g.float() - w.float()).abs().max().item() for g, w in zip(got, want))
+
+
+def check_attention_bwd(seed, name, b, h, lq, lk, dh, causal, dtype):
+    """The backward kernels against ``flash_attention_bwd_reference`` on the
+    same o, with a key-padding mask (one fully masked row) and without; the
+    whole ``FlashAttention`` path against autograd through ``mha_reference``."""
+    gen = torch.Generator(device="cuda").manual_seed(1000 + seed)
+    q, k, v = (torch.randn(b, h, n, dh, generator=gen, device="cuda").to(dtype)
+               for n in (lq, lk, lk))
+    do = torch.randn(b, h, lq, dh, generator=gen, device="cuda").to(dtype)
+    seqlen = torch.randint(0, lk + 1, (b,), generator=gen, device="cuda")
+    seqlen[0] = 0  # one fully masked row in every batch
+    pad = torch.arange(lk, device="cuda")[None, :] >= seqlen[:, None]
+    err = 0.0
+    with torch.no_grad():
+        for mask in (pad, None):
+            o, lse = flash_attention_fwd(q, k, v, mask, causal, want_lse=True)
+            got = flash_attention_bwd(q, k, v, o, do, lse, mask, causal)
+            torch.cuda.synchronize()
+            want = flash_attention_bwd_reference(q, k, v, o, do, mask, causal)
+            if not all(torch.isfinite(g).all() for g in got):
+                raise AssertionError(f"{name}: non-finite backward output")
+            if mask is pad and any((g[0] != 0).any() for g in got):
+                raise AssertionError(f"{name}: the fully masked batch row has gradients")
+            err = max(err, _max_err(got, want))
+    if err > ATOL_BWD[dtype]:
+        raise AssertionError(f"{name}: max |bwd kernel - plain| {err} > {ATOL_BWD[dtype]}")
+
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    got = torch.autograd.grad(FlashAttention.apply(*leaves, pad, causal), leaves, do)
+    ref_leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    want = torch.autograd.grad(mha_reference(*ref_leaves, pad, causal), ref_leaves, do)
+    # autograd of mha_reference rounds neither p nor ds to bf16, so in bf16
+    # the two may differ by one bf16 step of the gradient's own size as well
+    rtol = PATH_RTOL[dtype]
+    path_err = _max_err(got, want)
+    excess = max(((g.float() - w.float()).abs() - rtol * w.float().abs()).max().item()
+                 for g, w in zip(got, want))
+    if excess > ATOL_BWD[dtype]:
+        raise AssertionError(f"{name}: FlashAttention grads vs autograd of mha_reference "
+                             f"{path_err} > {ATOL_BWD[dtype]} + {rtol}·|grad|")
+
+    with torch.no_grad():
+        o, lse = flash_attention_fwd(q, k, v, pad, causal, want_lse=True)
+        ms = time_ms(lambda: flash_attention_bwd(q, k, v, o, do, lse, pad, causal))
+        plain_ms = time_ms(lambda: flash_attention_bwd_reference(q, k, v, o, do, pad, causal))
+    # SDPA gives NaN on fully masked rows, so its yardstick inputs have none;
+    # its graph is built once and only the backward is timed
+    lib_len = torch.randint(1, lk + 1, (b,), generator=gen, device="cuda")
+    attend = (torch.arange(lk, device="cuda")[None, :] < lib_len[:, None])[:, None, None, :]
+    if causal:
+        attend = attend & torch.ones(lq, lk, dtype=torch.bool, device="cuda").tril()
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    out = F.scaled_dot_product_attention(*leaves, attn_mask=attend)
+    library_ms = time_ms(lambda: torch.autograd.grad(out, leaves, do, retain_graph=True))
+    del out, leaves
+    bound_ms, bound_by = attention_bwd_bound_ms(q, k, pad, causal)
+    case = {"case": name, "shape": [b, h, lq, lk, dh], "causal": causal,
+            "dtype": str(dtype).replace("torch.", ""), "max_abs_err": err,
+            "path_max_abs_err": path_err, "atol": ATOL_BWD[dtype], "path_rtol": rtol, "ms": ms,
+            "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by}
+    log(f"kernel case bwd {json.dumps(case)}")
     return case
 
 
@@ -221,8 +350,14 @@ def profile_serve(gpu, requests):
             gpu.recommend(r, k=TOPK)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
+    log(f"profile: one serving pass, {sum(-(-len(r) // BATCH) for r in requests)} batches")
+    _log_profile(prof, wall_us)
+
+
+def _log_profile(prof, wall_us):
+    """Device time by kernel (kernel rows only: an op's row repeats the
+    device time of its kernels), host time by op, and the busy share."""
     events = prof.key_averages()
-    # kernel rows only: an op's row repeats the device time of its kernels
     kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
     device_us = sum(e.self_device_time_total for e in kernels)
     log(f"profile wall_us {wall_us:.1f} device_busy_us {device_us:.1f} "
@@ -231,6 +366,155 @@ def profile_serve(gpu, requests):
         log(f"  device_us {e.self_device_time_total:10.1f} calls {e.count:6d} {e.key[:90]}")
     for e in sorted(events, key=lambda e: -e.self_cpu_time_total)[:12]:
         log(f"  host_us {e.self_cpu_time_total:10.1f} calls {e.count:6d} {e.key[:90]}")
+
+
+def _train_cfg(workdir, **train):
+    cfg = copy.deepcopy(TRAIN_CONFIG)
+    cfg["eval"]["save_path"] = workdir
+    cfg["train"].update(train)
+    return cfg
+
+
+def card_vs_cpu(datasets, workdir):
+    """From the same initial weights, with dropout 0 and the same fed
+    negatives: the first step's gradients and 3 Adam steps' losses."""
+    cfg = _train_cfg(workdir)
+    cfg["model"]["dropout_rate"] = 0.0
+    rng = np.random.default_rng(0)
+    batches = []
+    for batch in datasets[0].get_loader(seed=0):
+        batches.append((batch, rng.integers(1, NUM_ITEMS, size=(BATCH, 50, 1))))
+        if len(batches) == 3:
+            break
+    runs = {}
+    for device in ("cuda", "cpu"):
+        trainer = Trainer(cfg, datasets, workdir=workdir, device=device)
+        trainer.init_state()
+        losses, grads = [], None
+        for batch, neg in batches:
+            trainer.optimizer.zero_grad(set_to_none=True)
+            loss = trainer.rec.training_loss(trainer.device_batch(batch), None,
+                                             neg_id=torch.from_numpy(neg).to(trainer.device))
+            loss.backward()
+            if grads is None:
+                grads = {k: p.grad.detach().cpu() for k, p in trainer.rec.module.named_parameters()}
+            trainer.optimizer.step()
+            losses.append(loss.item())
+        runs[device] = (losses, grads)
+    grad_err = max((runs["cuda"][1][k] - g).abs().max().item() for k, g in runs["cpu"][1].items())
+    loss_err = max(abs(a - b) for a, b in zip(runs["cuda"][0], runs["cpu"][0]))
+    if grad_err > GRAD_ATOL or loss_err > LOSS_ATOL:
+        raise AssertionError(f"card vs CPU: grads {grad_err} (atol {GRAD_ATOL}), "
+                             f"losses {loss_err} (atol {LOSS_ATOL})")
+    return {"grad_max_abs_err": grad_err, "grad_atol": GRAD_ATOL, "loss_max_abs_err": loss_err,
+            "loss_atol": LOSS_ATOL, "losses_card": runs["cuda"][0], "losses_cpu": runs["cpu"][0]}
+
+
+def bf16_steps(datasets, workdir, steps=5):
+    """A few steps with ``train.precision: bf16`` (autocast): finite losses,
+    through the backward kernel, f32 master weights."""
+    trainer = Trainer(_train_cfg(workdir, precision="bf16"), datasets, workdir=workdir)
+    trainer.init_state()
+    flash_attention_bwd.launches = 0
+    losses = []
+    for batch, _ in zip(trainer.train_data.get_loader(seed=0), range(steps)):
+        losses.append(trainer.train_step(trainer.device_batch(batch)).item())
+    if not np.isfinite(losses).all() or flash_attention_bwd.launches == 0:
+        raise AssertionError(f"bf16 steps: losses {losses}, "
+                             f"backward launches {flash_attention_bwd.launches}")
+    if any(p.dtype != torch.float32 for p in trainer.rec.module.parameters()):
+        raise AssertionError("bf16 steps: master weights are not f32")
+    return losses
+
+
+def train(card):
+    """Phase 5: the train path through ``Trainer.fit`` and ``evaluate``, on a
+    dataset written to a temporary directory that is removed afterwards."""
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as workdir:
+        return _train(card, workdir)
+
+
+def _train(card, workdir):
+    t0 = time.perf_counter()
+    write_synthetic_dataset(workdir, name="amazon-toys", domain="toy", num_users=NUM_USERS,
+                            num_items=NUM_ITEMS, seed=0)
+    datasets = prepare_datasets(TRAIN_CONFIG, root=workdir)
+    data_s = time.perf_counter() - t0
+    steps_per_epoch = len(datasets[0].get_loader())
+    eval_batches = len(datasets[1].get_loader())
+    layers = TRAIN_CONFIG["model"]["layer_num"]
+    epochs = TRAIN_CONFIG["train"]["epochs"]
+
+    trainer = Trainer(_train_cfg(workdir), datasets, workdir=workdir, device="cuda")
+    flash_attention.launches = 0
+    flash_attention_bwd.launches = 0
+    t0 = time.perf_counter()
+    val = trainer.fit()
+    test = trainer.evaluate()
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    fwd_launches = flash_attention.launches
+    bwd_launches = flash_attention_bwd.launches
+
+    steps = epochs * steps_per_epoch
+    want_fwd = layers * (steps + (epochs + 1) * eval_batches)  # val every epoch, then test
+    want_bwd = layers * steps * 2  # two CUDA kernels per backward: dq, then dk/dv
+    if fwd_launches != want_fwd or bwd_launches != want_bwd:
+        raise AssertionError(f"launches: forward {fwd_launches} (want {want_fwd}), "
+                             f"backward {bwd_launches} (want {want_bwd})")
+    with open(f"{trainer.run_dir()}/metrics.jsonl") as f:
+        losses = [json.loads(line)["train_loss"] for line in f]
+    if not (np.isfinite(losses).all() and losses[-1] < 2 * np.log(2)):
+        raise AssertionError(f"the train loss did not fall below 2·ln 2: {losses}")
+    random_recall = 20 / (NUM_ITEMS - 1)
+    if not val["recall@20"] > 5 * random_recall:
+        raise AssertionError(f"validation recall@20 {val['recall@20']} is not above "
+                             f"5 x random ({random_recall})")
+
+    parity = card_vs_cpu(datasets, workdir)
+    bf16 = bf16_steps(datasets, workdir)
+
+    # timed steps (uncounted): one epoch, each step from host batch to done
+    lat_ms, seqs = [], 0
+    for i, batch in enumerate(trainer.train_data.get_loader(seed=epochs)):
+        t0 = time.perf_counter()
+        trainer.train_step(trainer.device_batch(batch))
+        torch.cuda.synchronize()
+        if i > 0:  # the first step is the warm-up
+            lat_ms.append((time.perf_counter() - t0) * 1e3)
+            seqs += int(batch["valid"].sum())
+    result = {
+        "users": NUM_USERS, "items": NUM_ITEMS, "steps_per_epoch": steps_per_epoch,
+        "epochs": epochs, "eval_batches_per_pass": eval_batches, "data_build_s": data_s,
+        "fit_and_evaluate_s": fit_s, "epoch_train_s": trainer.training_time / epochs,
+        "epoch_eval_s": trainer.inference_time / epochs,
+        "steps_per_s": len(lat_ms) / (sum(lat_ms) / 1e3),
+        "sequences_per_s": seqs / (sum(lat_ms) / 1e3),
+        "step_ms_p50": float(np.percentile(lat_ms, 50)),
+        "step_ms_p90": float(np.percentile(lat_ms, 90)), "timed_steps": len(lat_ms),
+        "train_losses": losses, "val": val, "test": test,
+        "attention_fwd_launches": fwd_launches, "attention_bwd_launches": bwd_launches,
+        "card_vs_cpu": parity, "bf16_losses": bf16, "card": card,
+    }
+    log(f"train {json.dumps(result)}")
+    profile_train(trainer)
+    return fwd_launches, bwd_launches
+
+
+def profile_train(trainer, steps=10):
+    """``steps`` train steps under ``torch.profiler``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    batches = [b for b, _ in zip(trainer.train_data.get_loader(seed=0), range(steps))]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for batch in batches:
+            trainer.train_step(trainer.device_batch(batch))
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    log(f"profile: {steps} train steps")
+    _log_profile(prof, wall_us)
 
 
 def main() -> int:
@@ -255,26 +539,40 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 log(f"  ptxas {name}: {line.strip()}")
 
-    # 3. kernel vs plain version
+    # 3. kernels vs plain versions
     torch.backends.cuda.matmul.allow_tf32 = False
-    cases = [check_attention(i, *c) for i, c in enumerate(ATTENTION_CASES)]
+    torch.backends.cudnn.allow_tf32 = False
+    fwd_cases = [check_attention(i, *c) for i, c in enumerate(ATTENTION_CASES)]
+    bwd_cases = [check_attention_bwd(i, *c) for i, c in enumerate(ATTENTION_CASES)]
 
     # 4. serve through the kernels
     hist = markov_sequences(num_users=3000, num_items=NUM_ITEMS, min_len=1, max_len=80, seed=0)
     hist[0] = []  # one empty history
     requests = [hist[0:1000], hist[1000:2000], hist[2000:3000]]  # 1000 = 3·256 + 232
-    launches = serve(requests, card)
+    serve_launches = serve(requests, card)
 
-    main_case = cases[0]
+    # 5. train through the kernels
+    train_fwd_launches, train_bwd_launches = train(card)
+
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = [{
         "name": "flash_attention_fwd",
         "route": "cuda",
         "source": "dr4sr_tpu_torch/ops/csrc/flash_attention_fwd.cu",
         "replaces": "dr4sr_tpu/ops/attention.py:66",
-        "launches": launches,
-        **{key: main_case[key] for key in
-           ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
-        "cases": cases,
+        "launches": train_fwd_launches,
+        "launches_by_path": {"serve": serve_launches, "train": train_fwd_launches},
+        **{key: fwd_cases[0][key] for key in keys},
+        "cases": fwd_cases,
+    }, {
+        "name": "flash_attention_bwd",
+        "route": "cuda",
+        "source": "dr4sr_tpu_torch/ops/csrc/flash_attention_bwd.cu",
+        "replaces": "dr4sr_tpu/ops/attention.py:206",
+        "launches": train_bwd_launches,
+        "launches_by_path": {"serve": 0, "train": train_bwd_launches},
+        **{key: bwd_cases[0][key] for key in keys},
+        "cases": bwd_cases,
     }]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -6,8 +6,9 @@ run on ``device="cuda"`` unless the caller asks for the CPU; on the card every
 Pallas kernel of the path is a hand-written CUDA kernel (``ops/csrc/``), built
 with ``nvcc`` at first use.
 
-Ported so far: SASRec serving (``serve.Recommender``) with the flash-attention
-forward kernel.
+Ported so far: SASRec serving (``serve.Recommender``) and SASRec training
+(``train.trainer.Trainer.fit``, ``python -m dr4sr_tpu_torch.run``), with the
+flash-attention forward and backward kernels.
 
 Importing the package loads no kernel and builds nothing.
 """

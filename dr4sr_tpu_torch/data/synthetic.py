@@ -1,14 +1,19 @@
 """Synthetic sequential-recommendation data (the port's own copy of
-``markov_sequences`` and ``synthetic_config`` from
-``dr4sr_tpu/data/synthetic.py``). ``chip_smoke.py`` makes its request
-histories with it.
+``dr4sr_tpu/data/synthetic.py``): Markov-chain user sequences with a
+block-diagonal transition structure, so a working model beats random
+ranking quickly. ``write_synthetic_dataset`` writes the same files as the
+JAX writer; ``chip_smoke.py`` makes its request histories and its training
+set with it.
 """
 
 from __future__ import annotations
 
-from typing import List
+import os
+from typing import Dict, List
 
 import numpy as np
+
+from dr4sr_tpu_torch.data.preprocess import build_splits, save_domain, seq2pat_sequences
 
 
 def markov_sequences(
@@ -45,6 +50,31 @@ def markov_sequences(
                 cur = int(rng.choice(blocks[b]))
         seqs.append(seq)
     return seqs
+
+
+def write_synthetic_dataset(
+    root: str,
+    name: str = "synthetic",
+    domain: str = "syn",
+    num_users: int = 200,
+    num_items: int = 120,
+    max_seq_len: int = 50,
+    seed: int = 0,
+) -> Dict[str, int]:
+    """Materialize a full on-disk dataset (train/val/test/meta + seq2pat)."""
+    seqs = markov_sequences(num_users=num_users, num_items=num_items, seed=seed)
+    user_seqs = {i + 1: s for i, s in enumerate(seqs)}
+    train, val, test = build_splits(user_seqs, max_seq_len)
+    out_dir = os.path.join(root, name, domain)
+    save_domain(out_dir, train, val, test, num_users + 1, num_items)
+    # identical rows under the '_ori' suffix so configs with train_file='_ori' work
+    train.save_npz(os.path.join(out_dir, "train_ori.npz"))
+    np.savez(
+        os.path.join(out_dir, "seq2pat_data.npz"),
+        flat=np.concatenate([np.asarray(s, np.int32) for s in seq2pat_sequences(user_seqs)]),
+        offsets=np.cumsum([0] + [len(s) - 2 for s in seqs if len(s) > 2]).astype(np.int64),
+    )
+    return {"num_users": num_users + 1, "num_items": num_items}
 
 
 def synthetic_config(

@@ -29,7 +29,7 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 # every kernel source of the package, by name (csrc/<name>.cu)
-KERNELS = ("flash_attention_fwd",)
+KERNELS = ("flash_attention_fwd", "flash_attention_bwd")
 
 
 def _nvcc() -> str:

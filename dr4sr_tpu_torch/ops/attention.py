@@ -5,22 +5,35 @@
   pad) and an optional causal constraint, -1e30 mask fill, a safe softmax,
   and fully-masked query rows → 0 (PyTorch's SDPA gives NaN there). Scores
   and p·v are f32 with TF32 off.
-* :func:`flash_attention` — the hand-written CUDA kernel
+* :func:`flash_attention_bwd_reference` — plain PyTorch of the arithmetic of
+  ``dr4sr_tpu/ops/attention.py::_flash_bwd_kernel``, its rounding points
+  included: dq, dk, dv from q, k, v, o, dO and the mask.
+* :func:`flash_attention` — the hand-written CUDA forward kernel
   (``csrc/flash_attention_fwd.cu``), which replaces the Pallas TPU kernel
-  ``dr4sr_tpu/ops/attention.py::_flash_kernel``. CUDA tensors only.
+  ``_flash_kernel``, differentiable through :class:`FlashAttention`. CUDA
+  tensors only.
+* :func:`flash_attention_fwd` — the forward kernel's launcher without
+  autograd, which can also return the row log-sum-exp.
+* :func:`flash_attention_bwd` — the hand-written CUDA backward kernels
+  (``csrc/flash_attention_bwd.cu``), which replace ``_flash_bwd_kernel``.
+  CUDA tensors only.
+* :class:`FlashAttention` — the ``autograd.Function`` tying the two, as
+  ``_flash_diff`` ties the Pallas kernels: it saves q, k, v, o, the mask and
+  the forward's row log-sum-exp (no [B, H, L, L] residual). CPU tensors take
+  the plain halves, CUDA tensors the kernels.
 * :func:`multihead_attention` — the dispatcher: a CPU tensor goes to
-  :func:`mha_reference`, a CUDA tensor to the kernel, or the call raises.
+  :func:`mha_reference` (plain autograd), a CUDA tensor to
+  :class:`FlashAttention`, or the call raises.
 
 Layout is the JAX package's: q [B, H, Lq, Dh], k/v [B, H, Lk, Dh], mask
-[B, Lk]. The backward kernel (``_flash_bwd_kernel``) is not ported yet, so
-the kernel refuses inputs that need a gradient.
+[B, Lk].
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -38,60 +51,102 @@ def mha_reference(
     causal: bool = True,
 ) -> torch.Tensor:
     """Plain attention. q,k,v: [B, H, L, Dh]; key_padding_mask: [B, Lk] True=pad."""
-    lq, dh = q.shape[2], q.shape[3]
-    lk = k.shape[2]
-    scale = 1.0 / (dh**0.5)
     prev = torch.get_float32_matmul_precision()
     torch.set_float32_matmul_precision("highest")  # f32 scores: TF32 off
     try:
-        scores = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
-        if causal:
-            row = torch.arange(lq, device=q.device)[:, None]
-            col = torch.arange(lk, device=q.device)[None, :]
-            scores = scores.masked_fill(col > row, _NEG_INF)
-        if key_padding_mask is not None:
-            scores = scores.masked_fill(key_padding_mask[:, None, None, :], _NEG_INF)
-        # safe softmax: fully-masked rows -> zeros
-        m = scores.amax(dim=-1, keepdim=True)
-        e = torch.exp(scores - m)
-        e = e.masked_fill(scores <= _NEG_INF / 2, 0.0)
-        p = e / e.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+        p = _probs(*_masked_scores(q, k, key_padding_mask, causal))
         out = torch.matmul(p, v.float())
     finally:
         torch.set_float32_matmul_precision(prev)
     return out.to(q.dtype)
 
 
-_C_ARGTYPES = (
-    [ctypes.c_void_p] * 5  # q, k, v, key_padding_mask, o
+def _masked_scores(
+    q: torch.Tensor, k: torch.Tensor, key_padding_mask: Optional[torch.Tensor], causal: bool
+):
+    """f32 scores q·kᵀ/√Dh with the masks at -1e30, and the mask itself."""
+    lq, dh = q.shape[2], q.shape[3]
+    lk = k.shape[2]
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * (1.0 / (dh**0.5))
+    invalid = torch.zeros(1, 1, lq, lk, dtype=torch.bool, device=q.device)
+    if causal:
+        row = torch.arange(lq, device=q.device)[:, None]
+        col = torch.arange(lk, device=q.device)[None, :]
+        invalid = invalid | (col > row)
+    if key_padding_mask is not None:
+        invalid = invalid | key_padding_mask[:, None, None, :]
+    return s.masked_fill(invalid, _NEG_INF), invalid
+
+
+def _probs(s: torch.Tensor, invalid: torch.Tensor) -> torch.Tensor:
+    """Safe softmax over the key axis: masked entries are 0 after the exp,
+    so a fully masked row is 0 (PyTorch's SDPA gives NaN there)."""
+    e = torch.exp(s - s.amax(dim=-1, keepdim=True).detach()).masked_fill(invalid, 0.0)
+    return e / e.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+
+
+def flash_attention_bwd_reference(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    o: torch.Tensor,
+    do: torch.Tensor,
+    key_padding_mask: Optional[torch.Tensor] = None,
+    causal: bool = True,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv) as the TPU kernel computes them (``attention.py:221-296``):
+    p over the full masked key row with masked entries forced to 0 after the
+    exp (a fully masked row gives p = 0); dv = pᵀ·dO; ds = p ⊙ (dO·vᵀ −
+    rowsum(dO ⊙ o)) with the rowsum in f32; dq = ds·k·scale, dk = dsᵀ·q·scale.
+    bf16 inputs: bf16 operand values, p and ds rounded to bf16 before their
+    products, f32 accumulation. Results in the input dtype."""
+    bf16 = q.dtype == torch.bfloat16
+    scale = 1.0 / (q.shape[3] ** 0.5)
+    prev = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("highest")  # f32 products: TF32 off
+    try:
+        p = _probs(*_masked_scores(q, k, key_padding_mask, causal))
+        qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
+        pm = p.bfloat16().float() if bf16 else p
+        dv = torch.matmul(pm.transpose(-1, -2), dof)
+        dp = torch.matmul(dof, vf.transpose(-1, -2))
+        d_row = (dof * o.float()).sum(dim=-1, keepdim=True)
+        ds = p * (dp - d_row)
+        dsm = ds.bfloat16().float() if bf16 else ds
+        dq = torch.matmul(dsm, kf) * scale
+        dk = torch.matmul(dsm.transpose(-1, -2), qf) * scale
+    finally:
+        torch.set_float32_matmul_precision(prev)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+_FWD_ARGTYPES = (
+    [ctypes.c_void_p] * 6  # q, k, v, key_padding_mask, o, lse
     + [ctypes.c_int] * 7  # batch, heads, lq, lk, head_dim, causal, is_bf16
     + [ctypes.c_void_p]  # stream
 )
+_BWD_ARGTYPES = (
+    [ctypes.c_void_p] * 11  # q, k, v, o, dout, lse, key_padding_mask, dq, dk, dv, drow
+    + [ctypes.c_int] * 7  # batch, heads, lq, lk, head_dim, causal, is_bf16
+    + [ctypes.c_void_p]  # stream
+)
+_BWD_KERNELS_PER_CALL = 2  # dq, then dk/dv
 
 
 @functools.cache
-def _kernel():
-    lib = _build.load("flash_attention_fwd")
-    fn = lib.dr4sr_flash_attention_fwd
-    fn.argtypes = _C_ARGTYPES
+def _entry(name: str, argtypes: tuple):
+    fn = getattr(_build.load(name), "dr4sr_" + name)
+    fn.argtypes = list(argtypes)
     fn.restype = ctypes.c_int
     return fn
 
 
-def flash_attention(
-    q: torch.Tensor,
-    k: torch.Tensor,
-    v: torch.Tensor,
-    key_padding_mask: Optional[torch.Tensor] = None,
-    causal: bool = True,
-) -> torch.Tensor:
-    """The CUDA flash-attention forward. q,k,v: [B, H, L, Dh] contiguous CUDA
-    tensors of one dtype (f32 or bf16), Dh in {16, 32, 64, 128}; mask [B, Lk]
-    bool (True = pad) or None. Raises on anything else."""
+def _check_inputs(q, k, v, key_padding_mask, name):
+    """Validate what the kernels take; return (b, h, lq, lk, dh)."""
     if q.device.type != "cuda":
-        raise ValueError(f"flash_attention takes CUDA tensors, got {q.device}")
+        raise ValueError(f"{name} takes CUDA tensors, got {q.device}")
     if q.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"flash_attention takes float32 or bfloat16, got {q.dtype}")
+        raise TypeError(f"{name} takes float32 or bfloat16, got {q.dtype}")
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("q, k, v must be [B, H, L, Dh]")
     b, h, lq, dh = q.shape
@@ -111,29 +166,133 @@ def flash_attention(
         if t is not key_padding_mask and t.dtype != q.dtype:
             raise TypeError("q, k, v must share a dtype")
         if not t.is_contiguous():
-            raise ValueError("flash_attention takes contiguous tensors")
-    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
-        raise RuntimeError(
-            "flash_attention has no backward kernel yet; call it under torch.no_grad()"
-        )
+            raise ValueError(f"{name} takes contiguous tensors")
+    return b, h, lq, lk, dh
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
+def flash_attention_fwd(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    key_padding_mask: Optional[torch.Tensor] = None,
+    causal: bool = True,
+    want_lse: bool = False,
+) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Launch the forward kernel, without autograd: (o, lse), lse [B, H, Lq]
+    f32 (the row log-sum-exp, +inf on a fully masked row) or None. Counts
+    in ``flash_attention.launches``."""
+    b, h, lq, lk, dh = _check_inputs(q, k, v, key_padding_mask, "flash_attention")
     out = torch.empty_like(q)
+    lse = torch.empty(b, h, lq, dtype=torch.float32, device=q.device) if want_lse else None
     if out.numel() == 0:
-        return out
-    fn = _kernel()
+        return out, lse
+    fn = _entry("flash_attention_fwd", tuple(_FWD_ARGTYPES))
     with torch.cuda.device(q.device):
         err = fn(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            None if key_padding_mask is None else key_padding_mask.data_ptr(),
-            out.data_ptr(), b, h, lq, lk, dh, int(causal), int(q.dtype == torch.bfloat16),
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(key_padding_mask), out.data_ptr(),
+            _ptr(lse), b, h, lq, lk, dh, int(causal), int(q.dtype == torch.bfloat16),
             torch.cuda.current_stream(q.device).cuda_stream,
         )
     if err != 0:
         raise RuntimeError(f"flash_attention_fwd launch failed: cudaError_t {err}")
     flash_attention.launches += 1
-    return out
+    return out, lse
 
 
-flash_attention.launches = 0  # kernel launches since the last reset
+def flash_attention_bwd(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    o: torch.Tensor,
+    do: torch.Tensor,
+    lse: torch.Tensor,
+    key_padding_mask: Optional[torch.Tensor] = None,
+    causal: bool = True,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The CUDA flash-attention backward: (dq, dk, dv) in the input dtype.
+    q, k, v as for :func:`flash_attention`; o and do [B, H, Lq, Dh] of q's
+    dtype; lse [B, H, Lq] f32 from the forward. All contiguous CUDA
+    tensors. Launches two kernels (dq, then dk/dv); raises on anything it
+    does not take."""
+    b, h, lq, lk, dh = _check_inputs(q, k, v, key_padding_mask, "flash_attention_bwd")
+    for name, t, shape, dtype in (("o", o, q.shape, q.dtype), ("do", do, q.shape, q.dtype),
+                                  ("lse", lse, (b, h, lq), torch.float32)):
+        if t.shape != shape or t.dtype != dtype or t.device != q.device:
+            raise ValueError(f"{name} must be {dtype} {tuple(shape)} on {q.device}, got "
+                             f"{t.dtype} {tuple(t.shape)} on {t.device}")
+        if not t.is_contiguous():
+            raise ValueError("flash_attention_bwd takes contiguous tensors")
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    if dq.numel() == 0 and dk.numel() == 0:
+        return dq, dk, dv
+    drow = torch.empty(b, h, lq, dtype=torch.float32, device=q.device)  # rowsum(dO ⊙ o)
+    fn = _entry("flash_attention_bwd", tuple(_BWD_ARGTYPES))
+    with torch.cuda.device(q.device):
+        err = fn(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), _ptr(key_padding_mask), dq.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), drow.data_ptr(), b, h, lq, lk, dh, int(causal),
+            int(q.dtype == torch.bfloat16), torch.cuda.current_stream(q.device).cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"flash_attention_bwd launch failed: cudaError_t {err}")
+    flash_attention_bwd.launches += _BWD_KERNELS_PER_CALL
+    return dq, dk, dv
+
+
+flash_attention_bwd.launches = 0  # CUDA kernel launches since the last reset
+
+
+class FlashAttention(torch.autograd.Function):
+    """Differentiable fused attention, mirroring ``_flash_diff``: the forward
+    kernel, then the backward kernels. It saves q, k, v, o, the mask and the
+    row log-sum-exp. CPU tensors take the plain halves (:func:`mha_reference`,
+    :func:`flash_attention_bwd_reference`). No gradient for the mask."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, key_padding_mask, causal):
+        ctx.causal = causal
+        if q.device.type == "cpu":
+            o, lse = mha_reference(q, k, v, key_padding_mask, causal), None
+        else:
+            o, lse = flash_attention_fwd(q, k, v, key_padding_mask, causal,
+                                         want_lse=any(ctx.needs_input_grad[:3]))
+        ctx.save_for_backward(q, k, v, o, key_padding_mask, lse)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, key_padding_mask, lse = ctx.saved_tensors
+        # the incoming gradient may be a transposed view (layers.py reshapes
+        # the output before out_proj) or, under autocast, another dtype
+        do = do.to(q.dtype).contiguous()
+        if q.device.type == "cpu":
+            grads = flash_attention_bwd_reference(q, k, v, o, do, key_padding_mask, ctx.causal)
+        else:
+            grads = flash_attention_bwd(q, k, v, o, do, lse, key_padding_mask, ctx.causal)
+        return (*grads, None, None)
+
+
+def flash_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    key_padding_mask: Optional[torch.Tensor] = None,
+    causal: bool = True,
+) -> torch.Tensor:
+    """The CUDA flash-attention forward, differentiable. q,k,v: [B, H, L, Dh]
+    contiguous CUDA tensors of one dtype (f32 or bf16), Dh in {16, 32, 64,
+    128}; mask [B, Lk] bool (True = pad) or None. Raises on anything else."""
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention takes CUDA tensors, got {q.device}")
+    return FlashAttention.apply(q, k, v, key_padding_mask, causal)
+
+
+flash_attention.launches = 0  # forward kernel launches since the last reset
 
 
 def multihead_attention(
@@ -143,9 +302,9 @@ def multihead_attention(
     key_padding_mask: Optional[torch.Tensor] = None,
     causal: bool = True,
 ) -> torch.Tensor:
-    """CPU tensors → :func:`mha_reference`; CUDA tensors → the kernel."""
+    """CPU tensors → :func:`mha_reference`; CUDA tensors → the kernels."""
     if q.device.type == "cpu":
         return mha_reference(q, k, v, key_padding_mask, causal)
     if q.device.type == "cuda":
-        return flash_attention(q, k, v, key_padding_mask, causal)
+        return FlashAttention.apply(q, k, v, key_padding_mask, causal)
     raise ValueError(f"no attention route for device {q.device}")

@@ -12,7 +12,9 @@
 // and the output is acc / max(l, 1e-30), so a fully masked row gives 0.
 // f32 inputs use all-f32 math with q pre-scaled; bf16 inputs keep bf16
 // operand values (exact in f32), accumulate in f32, scale the f32 scores,
-// round p to bf16 before p·v and write bf16.
+// round p to bf16 before p·v and write bf16. When asked (training), it also
+// writes each row's log-sum-exp m + log(l) in f32 (+inf for a fully masked
+// row) for the backward kernel, flash_attention_bwd.cu.
 //
 // Design. The TPU kernel keeps a (batch, head)'s whole K/V resident in VMEM
 // and walks its grid in order. Here blocks run in parallel and carry
@@ -72,8 +74,8 @@ __device__ __forceinline__ float warp_sum(float x) {
 template <typename T, int DH>
 __global__ void __launch_bounds__(kWarps * 32)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                 const uint8_t* __restrict__ pad, T* __restrict__ o, int heads, int lq,
-                 int lk, int num_q_tiles, int causal, float scale) {
+                 const uint8_t* __restrict__ pad, T* __restrict__ o, float* __restrict__ lse,
+                 int heads, int lq, int lk, int num_q_tiles, int causal, float scale) {
   constexpr bool kBf16 = sizeof(T) == 2;
   constexpr int kKStride = DH + 1;              // padded K row (bank-conflict free)
   constexpr int kDimsPerLane = DH >= 32 ? DH / 32 : 1;
@@ -198,6 +200,9 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   for (int rr = 0; rr < kRowsPerWarp; ++rr) {
     const int row = q0 + warp * kRowsPerWarp + rr;
     if (row >= lq) break;
+    if (lse != nullptr && lane == 0) {
+      lse[static_cast<size_t>(bh) * lq + row] = l[rr] > 0.f ? m[rr] + logf(l[rr]) : INFINITY;
+    }
     const float denom = fmaxf(l[rr], 1e-30f);
     T* orow = o + q_base + static_cast<size_t>(row) * DH;
 #pragma unroll
@@ -207,7 +212,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 
 template <typename T, int DH>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* pad, void* o,
-                   int batch, int heads, int lq, int lk, int causal, float scale,
+                   float* lse, int batch, int heads, int lq, int lk, int causal, float scale,
                    cudaStream_t stream) {
   const int num_q_tiles = (lq + kBlockQ - 1) / kBlockQ;
   const long long blocks = static_cast<long long>(batch) * heads * num_q_tiles;
@@ -223,20 +228,21 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* pad,
   }
   kernel<<<static_cast<unsigned>(blocks), kWarps * 32, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const uint8_t*>(pad), static_cast<T*>(o), heads, lq, lk, num_q_tiles, causal,
-      scale);
+      static_cast<const uint8_t*>(pad), static_cast<T*>(o), lse, heads, lq, lk, num_q_tiles,
+      causal, scale);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t dispatch_dim(int head_dim, const void* q, const void* k, const void* v,
-                         const void* pad, void* o, int batch, int heads, int lq, int lk,
-                         int causal, float scale, cudaStream_t stream) {
+                         const void* pad, void* o, float* lse, int batch, int heads, int lq,
+                         int lk, int causal, float scale, cudaStream_t stream) {
   switch (head_dim) {
-    case 16: return launch<T, 16>(q, k, v, pad, o, batch, heads, lq, lk, causal, scale, stream);
-    case 32: return launch<T, 32>(q, k, v, pad, o, batch, heads, lq, lk, causal, scale, stream);
-    case 64: return launch<T, 64>(q, k, v, pad, o, batch, heads, lq, lk, causal, scale, stream);
-    case 128: return launch<T, 128>(q, k, v, pad, o, batch, heads, lq, lk, causal, scale, stream);
+    case 16: return launch<T, 16>(q, k, v, pad, o, lse, batch, heads, lq, lk, causal, scale, stream);
+    case 32: return launch<T, 32>(q, k, v, pad, o, lse, batch, heads, lq, lk, causal, scale, stream);
+    case 64: return launch<T, 64>(q, k, v, pad, o, lse, batch, heads, lq, lk, causal, scale, stream);
+    case 128:
+      return launch<T, 128>(q, k, v, pad, o, lse, batch, heads, lq, lk, causal, scale, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -245,19 +251,21 @@ cudaError_t dispatch_dim(int head_dim, const void* q, const void* k, const void*
 
 // q [B,H,Lq,Dh], k/v [B,H,Lk,Dh], o [B,H,Lq,Dh], all contiguous, f32
 // (is_bf16 = 0) or bf16 (is_bf16 = 1); key_padding_mask [B,Lk] bytes
-// (nonzero = pad) or null. Launches on `stream`, does not synchronise, and
-// returns the launch's cudaError_t.
+// (nonzero = pad) or null; lse [B,H,Lq] f32, or null when not wanted
+// (serving). Launches on `stream`, does not synchronise, and returns the
+// launch's cudaError_t.
 extern "C" int dr4sr_flash_attention_fwd(const void* q, const void* k, const void* v,
-                                         const void* key_padding_mask, void* o, int batch,
-                                         int heads, int lq, int lk, int head_dim, int causal,
-                                         int is_bf16, void* stream) {
+                                         const void* key_padding_mask, void* o, void* lse,
+                                         int batch, int heads, int lq, int lk, int head_dim,
+                                         int causal, int is_bf16, void* stream) {
   // the reference computes 1/√Dh in double and rounds it once to f32
   const float scale = static_cast<float>(1.0 / std::sqrt(static_cast<double>(head_dim)));
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* lse_f = static_cast<float*>(lse);
   if (is_bf16) {
-    return dispatch_dim<__nv_bfloat16>(head_dim, q, k, v, key_padding_mask, o, batch, heads,
-                                       lq, lk, causal, scale, s);
+    return dispatch_dim<__nv_bfloat16>(head_dim, q, k, v, key_padding_mask, o, lse_f, batch,
+                                       heads, lq, lk, causal, scale, s);
   }
-  return dispatch_dim<float>(head_dim, q, k, v, key_padding_mask, o, batch, heads, lq, lk,
-                             causal, scale, s);
+  return dispatch_dim<float>(head_dim, q, k, v, key_padding_mask, o, lse_f, batch, heads, lq,
+                             lk, causal, scale, s);
 }

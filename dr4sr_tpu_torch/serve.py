@@ -8,8 +8,9 @@ batches, encode them, score the whole catalog, mask PAD/seen items, top-k.
     items, scores = server.recommend([[12, 880, 43], [7, 7, 301]], k=10)
 
 ``params`` is a state_dict for ``rec.module`` (``convert.py`` makes one from
-a JAX param tree). Reading the JAX flax-msgpack checkpoint
-(``from_checkpoint``) comes with the trainer slice.
+a JAX param tree). ``Recommender.from_checkpoint(path)`` rebuilds the model
+from a checkpoint of this package or of the JAX package (flax msgpack, read
+without the msgpack package) and its ``.json`` sidecar's config.
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ import numpy as np
 import torch
 
 from dr4sr_tpu_torch.models.base import RecModel
+from dr4sr_tpu_torch.train import checkpoint
 
 
 class Recommender:
@@ -49,6 +51,30 @@ class Recommender:
         )
         keep[0] = False
         self.keep_mask = torch.from_numpy(keep).to(self.device)
+
+    @classmethod
+    def from_checkpoint(cls, path: str, root: Optional[str] = None, **kwargs) -> "Recommender":
+        """Rebuild the model from a checkpoint and its config, and load its
+        params. ``root`` is the dataset root holding the config's dataset
+        (its ``meta.npz`` sizes the catalog); ``kwargs`` go to the
+        constructor (``device``, ``batch_size``, ``item_keep_mask``)."""
+        from dr4sr_tpu_torch.convert import sasrec_params_from_jax
+        from dr4sr_tpu_torch.data.dataset import DATASET_ROOT, _load_meta
+        from dr4sr_tpu_torch.models import get_model_class
+
+        if checkpoint.is_jax_checkpoint(path):
+            config = checkpoint.read_sidecar(path)["config"]
+            params = None
+        else:
+            params, meta = checkpoint.load_checkpoint(path)
+            config = meta["config"]
+        ds_meta = _load_meta(root or DATASET_ROOT, config["data"]["dataset"],
+                             config["data"]["domain_name_list"])
+        module = get_model_class(config["model"]["model"]).build(config, ds_meta["num_items"])
+        if params is None:
+            params = sasrec_params_from_jax(checkpoint.load_jax_checkpoint(path), module)
+        rec = RecModel(config, module, ds_meta["num_items"], ds_meta["num_users"])
+        return cls(rec, params, **kwargs)
 
     @torch.inference_mode()
     def recommend(

@@ -1,0 +1,399 @@
+"""The training and evaluation engine.
+
+Port of ``dr4sr_tpu/train/trainer.py`` for one device: a host-side epoch
+loop around
+
+* a train step — forward in train mode, negatives drawn on the device from
+  an explicit ``torch.Generator``, BCE/BPR loss, backward (attention through
+  the CUDA backward kernel on the card), optimizer update;
+* an eval step — encode in eval mode, full-catalog masked top-k, per-sample
+  rank metrics summed on the device; the host only divides at the end.
+
+``train.precision: bf16`` runs forward and backward under
+``torch.autocast(device, bfloat16)`` with f32 master weights; eval stays
+f32. Seeds as in the JAX trainer: the weights from ``train.seed``, the
+step's draws (negatives, dropout) from ``train.seed + 1``.
+
+Not ported yet, and refused with a clear error: model classes that need a
+contrastive or auxiliary loss, a graph, prefix or pre-padded batches or
+per-epoch state (the model-zoo slice), ``train.steps_per_dispatch > 1`` (a
+later CUDA-graph PR), ``train.tensorboard_dir`` and ``train.profile_epoch``.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import copy
+import dataclasses
+import json
+import logging
+import os
+import time
+from collections import defaultdict
+from typing import Any, Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from dr4sr_tpu_torch import evaluation
+from dr4sr_tpu_torch.data.dataset import SeqDataset
+from dr4sr_tpu_torch.models import get_model_class
+from dr4sr_tpu_torch.models.base import RecModel
+from dr4sr_tpu_torch.train.callbacks import Analyzer, EarlyStopping
+from dr4sr_tpu_torch.train.checkpoint import load_checkpoint
+
+logger = logging.getLogger("dr4sr_tpu_torch")
+
+# model-class flags whose code paths this package has not ported yet
+_UNPORTED_MODEL_FLAGS = ("contrastive", "aux_loss", "needs_graph", "prefix_training",
+                         "pre_padding", "refresh_state", "is_meta")
+_UNPORTED_TRAIN_KEYS = ("tensorboard_dir", "profile_epoch")
+
+
+class _OptaxRMS(torch.optim.Optimizer):
+    """optax ``scale_by_rms`` (decay 0.9, eps 1e-8 inside the sqrt, second
+    moment starting at 0) followed by ``scale(-lr)``; coupled weight decay
+    added to the gradient first, as ``optax.add_decayed_weights``."""
+
+    def __init__(self, params, lr: float, weight_decay: float = 0.0, decay: float = 0.9,
+                 eps: float = 1e-8) -> None:
+        super().__init__(params, dict(lr=lr, weight_decay=weight_decay, decay=decay, eps=eps))
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        for group in self.param_groups:
+            for p in group["params"]:
+                if p.grad is None:
+                    continue
+                g = p.grad.add(p, alpha=group["weight_decay"]) if group["weight_decay"] else p.grad
+                state = self.state[p]
+                if not state:
+                    state["nu"] = torch.zeros_like(p)
+                nu = state["nu"]
+                nu.mul_(group["decay"]).addcmul_(g, g, value=1.0 - group["decay"])
+                p.addcmul_(g, torch.rsqrt(nu + group["eps"]), value=-group["lr"])
+
+
+class _OptaxRSS(torch.optim.Optimizer):
+    """optax ``scale_by_rss`` (sum of squares starting at 0.1, eps 1e-7
+    inside the sqrt) followed by ``scale(-lr)``; coupled weight decay first."""
+
+    def __init__(self, params, lr: float, weight_decay: float = 0.0,
+                 initial_accumulator_value: float = 0.1, eps: float = 1e-7) -> None:
+        super().__init__(params, dict(lr=lr, weight_decay=weight_decay,
+                                      initial_accumulator_value=initial_accumulator_value,
+                                      eps=eps))
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        for group in self.param_groups:
+            for p in group["params"]:
+                if p.grad is None:
+                    continue
+                g = p.grad.add(p, alpha=group["weight_decay"]) if group["weight_decay"] else p.grad
+                state = self.state[p]
+                if not state:
+                    state["sum_of_squares"] = torch.full_like(p, group["initial_accumulator_value"])
+                acc = state["sum_of_squares"]
+                acc.addcmul_(g, g)
+                scale = torch.where(acc > 0, torch.rsqrt(acc + group["eps"]), 0.0)
+                p.addcmul_(g, scale, value=-group["lr"])
+
+
+def make_optimizer(params, train_cfg: Dict[str, Any]) -> torch.optim.Optimizer:
+    """torch-style optimizers (reference ``_get_optimizers``) matching the JAX
+    package's optax chains: weight decay is coupled (added to the gradient
+    before the update). adam and sgd are ``torch.optim``'s, which match
+    ``scale_by_adam`` and ``identity``; rmsprop and adagrad follow optax's
+    formulas, which differ from ``torch.optim``'s defaults."""
+    name = str(train_cfg.get("optimizer", "adam")).lower()
+    lr = float(train_cfg.get("learning_rate", 1e-3))
+    wd = float(train_cfg.get("weight_decay", 0.0) or 0.0)
+    if name == "adam":
+        return torch.optim.Adam(params, lr=lr, weight_decay=wd)
+    if name == "sgd":
+        return torch.optim.SGD(params, lr=lr, weight_decay=wd)
+    if name == "rmsprop":
+        return _OptaxRMS(params, lr=lr, weight_decay=wd)
+    if name == "adagrad":
+        return _OptaxRSS(params, lr=lr, weight_decay=wd)
+    raise ValueError(f"unknown optimizer {name!r}: adam, sgd, rmsprop or adagrad")
+
+
+class Trainer:
+    def __init__(
+        self,
+        config: Dict[str, Any],
+        datasets: Tuple[SeqDataset, SeqDataset, SeqDataset],
+        workdir: Optional[str] = None,
+        device="cuda",
+    ) -> None:
+        self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("device='cuda' asked for, but CUDA is not available")
+        self.config = config
+        self.train_data, self.val_data, self.test_data = datasets
+        self.workdir = workdir
+
+        self.model_name = config["model"]["model"]
+        self.model_class = get_model_class(self.model_name)
+        for flag in _UNPORTED_MODEL_FLAGS:
+            if getattr(self.model_class, flag, None):
+                raise NotImplementedError(
+                    f"model {self.model_name!r} needs '{flag}', which dr4sr_tpu_torch does "
+                    f"not port yet (model-zoo and DR4SR+ slices); use the JAX package")
+        cfg_t = config["train"]
+        for key in _UNPORTED_TRAIN_KEYS:
+            if cfg_t.get(key) is not None:
+                raise NotImplementedError(f"train.{key} is not ported to dr4sr_tpu_torch yet")
+        if int(cfg_t.get("steps_per_dispatch", 1)) > 1:
+            raise NotImplementedError(
+                "train.steps_per_dispatch > 1 waits for the CUDA-graph port; use 1")
+        prec = str(cfg_t.get("precision", "fp32")).lower()
+        if prec not in ("fp32", "float32", "bf16", "bfloat16"):
+            raise ValueError(f"train.precision must be fp32 or bf16, got {prec!r}")
+        self.compute_dtype = torch.bfloat16 if prec.startswith("bf") else None
+
+        self.num_items = self.train_data.num_items
+        self.num_users = self.train_data.num_users
+        self.domain_name_list = self.train_data.domain_name_list
+        self.training_time = 0.0
+        self.inference_time = 0.0
+        self.logged_metrics: Dict[str, float] = {}
+        self.rec: Optional[RecModel] = None
+        self.optimizer: Optional[torch.optim.Optimizer] = None
+        self.step = 0
+        self.generator: Optional[torch.Generator] = None  # negatives
+        self.best_params: Optional[Dict[str, torch.Tensor]] = None
+
+    # ------------------------------------------------------------------- init
+    def init_state(self, seed: Optional[int] = None) -> RecModel:
+        """Fresh weights from ``seed`` (default ``train.seed``), a fresh
+        optimizer, and the step's generators seeded from ``seed + 1``. The
+        weights are drawn on the CPU, so every device starts from the same."""
+        seed = int(self.config["train"].get("seed", 2023)) if seed is None else seed
+        module = self.model_class.build(self.config, self.num_items,
+                                        generator=torch.Generator().manual_seed(seed))
+        self.rec = RecModel(self.config, module.to(self.device), self.num_items, self.num_users)
+        self.optimizer = make_optimizer(module.parameters(), self.config["train"])
+        self.step = 0
+        # negatives from their own generator; dropout from the default ones
+        self.generator = torch.Generator(device=self.device).manual_seed(seed + 1)
+        torch.manual_seed(seed + 1)
+        return self.rec
+
+    # ------------------------------------------------------------ batch plumbing
+    def device_batch(self, batch: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+        out = {}
+        for k, v in batch.items():
+            t = torch.from_numpy(np.ascontiguousarray(v))
+            if t.dtype == torch.int32:
+                t = t.long()
+            out[k] = t.to(self.device, non_blocking=True)
+        return out
+
+    def _autocast(self):
+        if self.compute_dtype is None:
+            return contextlib.nullcontext()
+        return torch.autocast(self.device.type, dtype=self.compute_dtype)
+
+    # -------------------------------------------------------------- train step
+    def train_step(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """One optimizer step on a device batch; returns the loss (on device)."""
+        self.optimizer.zero_grad(set_to_none=True)
+        with self._autocast():
+            loss = self.rec.training_loss(batch, self.generator)
+        loss.backward()
+        self.optimizer.step()
+        self.step += 1
+        return loss.detach()
+
+    def training_epoch(self, nepoch: int) -> float:
+        if self.rec is None:
+            raise RuntimeError("call init_state() first")
+        self.rec.module.train()
+        total = torch.zeros((), device=self.device)
+        n_steps = 0
+        for batch in self.train_data.get_loader(seed=nepoch):
+            total += self.train_step(self.device_batch(batch))
+            n_steps += 1
+        return float(total) / max(n_steps, 1)
+
+    # --------------------------------------------------------------- eval step
+    @torch.no_grad()
+    def _eval_metrics(self, rec: RecModel, batch, keep_mask) -> Dict[str, torch.Tensor]:
+        cfg_e = self.config["eval"]
+        cutoffs = tuple(int(c) for c in cfg_e["cutoff"])
+        _, topk_items = rec.topk(batch, int(cfg_e["topk"]), item_keep_mask=keep_mask)
+        pred = batch["item_id"][:, None] == topk_items  # [B, k] bool
+        return evaluation.compute_rank_metrics(pred, batch["label"], cfg_e["val_metrics"],
+                                               cutoffs)
+
+    def _eval_epoch(self, dataset: SeqDataset, domain: str, rec: Optional[RecModel] = None,
+                    with_analyzer: bool = False) -> Dict[str, float]:
+        """Metrics over ``domain``'s rows, averaged over the valid rows; the
+        sums stay on the device until the end. ``with_analyzer`` also buckets
+        the per-sample metrics by history length (``self._last_analyzer``)."""
+        rec = rec or self.rec
+        dataset.set_eval_domain(domain)
+        keep_mask = torch.from_numpy(dataset.domain_item_mask(domain)).to(self.device)
+        sums: Dict[str, torch.Tensor] = {}
+        count = torch.zeros((), device=self.device)
+        analyzer = Analyzer() if with_analyzer else None
+        for batch in dataset.get_loader():
+            dbatch = self.device_batch(batch)
+            per_sample = self._eval_metrics(rec, dbatch, keep_mask)
+            valid = dbatch["valid"]
+            for k, v in per_sample.items():
+                part = torch.where(valid, v, 0.0).sum()
+                sums[k] = part if k not in sums else sums[k] + part
+            count += valid.sum()
+            if analyzer is not None:
+                host = {k: v.cpu().numpy() for k, v in per_sample.items()}
+                analyzer.record_batch(batch["seqlen"], host, batch["valid"])
+        if analyzer is not None:
+            self._last_analyzer = analyzer
+        denom = max(float(count), 1.0)
+        return {k: float(v) / denom for k, v in sums.items()}
+
+    def _rec_with(self, params: Optional[Dict[str, torch.Tensor]]) -> RecModel:
+        """The model with ``params`` loaded into a copy of the module."""
+        if params is None:
+            return self.rec
+        module = copy.deepcopy(self.rec.module)
+        module.load_state_dict(params)
+        return dataclasses.replace(self.rec, module=module)
+
+    # ------------------------------------------------------------ observability
+    def _save_base(self) -> str:
+        return self.workdir or self.config["eval"].get("save_path", "saved")
+
+    def run_dir(self) -> str:
+        return os.path.join(self._save_base(), self.model_name, self.config["data"]["dataset"])
+
+    def _log_metrics_jsonl(self, record: Dict[str, Any]) -> None:
+        """Append per-epoch metrics to ``<workdir>/<model>/<dataset>/metrics.jsonl``
+        (the reference logs to wandb at ``model/basemodel.py:149,400``)."""
+        path = os.path.join(self.run_dir(), "metrics.jsonl")
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        clean = {k: (float(v) if isinstance(v, (int, float, np.floating)) else v)
+                 for k, v in record.items()}
+        with open(path, "a") as f:
+            f.write(json.dumps(clean) + "\n")
+
+    # --------------------------------------------------------- fault tolerance
+    def _state_path(self) -> str:
+        return os.path.join(self.run_dir(), "state_latest.pt")
+
+    def save_train_state(self, epoch: int) -> None:
+        """Resumable snapshot: params, optimizer state, step, epoch and the
+        generators' states (the reference keeps only the best params)."""
+        path = self._state_path()
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        payload = {
+            "params": self.rec.module.state_dict(),
+            "optimizer": self.optimizer.state_dict(),
+            "step": self.step,
+            "epoch": int(epoch),
+            "generator": self.generator.get_state(),
+            "torch_rng": torch.get_rng_state(),
+        }
+        if self.device.type == "cuda":
+            payload["cuda_rng"] = torch.cuda.get_rng_state(self.device)
+        torch.save(payload, path)
+
+    def restore_train_state(self) -> Optional[int]:
+        """Returns the epoch to resume from, or None if no snapshot exists."""
+        path = self._state_path()
+        if not os.path.exists(path):
+            return None
+        if self.rec is None:
+            self.init_state()
+        payload = torch.load(path, map_location="cpu", weights_only=True)
+        self.rec.module.load_state_dict(payload["params"])
+        self.optimizer.load_state_dict(payload["optimizer"])
+        self.step = int(payload["step"])
+        self.generator.set_state(payload["generator"])
+        torch.set_rng_state(payload["torch_rng"])
+        if "cuda_rng" in payload and self.device.type == "cuda":
+            torch.cuda.set_rng_state(payload["cuda_rng"], self.device)
+        return int(payload["epoch"]) + 1
+
+    # ----------------------------------------------------------------- fit/eval
+    def fit(self, resume: bool = False) -> Dict[str, float]:
+        cfg_t = self.config["train"]
+        monitor = f"ndcg@{int(self.config['eval']['cutoff'][0])}"
+        callback = EarlyStopping(
+            monitor,
+            self.config["data"]["dataset"],
+            self.model_name,
+            save_dir=self._save_base(),
+            patience=int(cfg_t.get("early_stop_patience", 10)),
+            mode=cfg_t.get("early_stop_mode", "max"),
+        )
+        if self.rec is None:
+            self.init_state()
+        start_epoch = 0
+        if resume:
+            resumed = self.restore_train_state()
+            if resumed is not None:
+                start_epoch = resumed
+                logger.info(f"resumed training from epoch {start_epoch}")
+
+        ckpt_every = int(cfg_t.get("checkpoint_every_epochs", 0) or 0)
+        for nepoch in range(start_epoch, int(cfg_t["epochs"])):
+            self.logged_metrics = {"epoch": nepoch}
+            tik = time.perf_counter()
+            train_loss = self.training_epoch(nepoch)
+            self.training_time += time.perf_counter() - tik
+            self.logged_metrics["train_loss"] = train_loss
+            if ckpt_every and (nepoch + 1) % ckpt_every == 0:
+                self.save_train_state(nepoch)
+
+            tik = time.perf_counter()
+            domain_sums: Dict[str, float] = defaultdict(float)
+            analyze = nepoch % 10 == 0
+            for domain in self.domain_name_list:
+                out = self._eval_epoch(self.val_data, domain, with_analyzer=analyze)
+                for k, v in out.items():
+                    self.logged_metrics[f"{domain}_{k}"] = v
+                    domain_sums[k] += v
+            self.logged_metrics.update(domain_sums)
+            self.inference_time += time.perf_counter() - tik
+
+            logger.info(f"epoch {nepoch}: " + ", ".join(
+                f"{k}={v:.4f}" for k, v in self.logged_metrics.items() if isinstance(v, float)))
+            self._log_metrics_jsonl(self.logged_metrics)
+            if analyze:
+                logger.info(f"analyzer (by history length): {self._last_analyzer.summary()}")
+            if callback(self.rec.module.state_dict(), self.config, nepoch, self.logged_metrics):
+                break
+        self.callback = callback
+        self.best_params = callback.best_params or {
+            k: v.detach().to("cpu", copy=True) for k, v in self.rec.module.state_dict().items()}
+        return self.logged_metrics
+
+    def evaluate(self) -> Dict[str, float]:
+        """Test metrics with the best checkpointed params
+        (reference ``BaseModel.evaluate``, ``model/basemodel.py:370-402``)."""
+        rec = self._rec_with(self.best_params)
+        output: Dict[str, float] = {}
+        domain_sums: Dict[str, float] = defaultdict(float)
+        for domain in self.domain_name_list:
+            out = self._eval_epoch(self.test_data, domain, rec, with_analyzer=True)
+            for k, v in out.items():
+                output[f"{domain}_{k}"] = v
+                domain_sums[k] += v
+        output.update(domain_sums)
+        logger.info(f"test: {output}")
+        logger.info(f"training_time: {self.training_time:.1f}s "
+                    f"inference_time: {self.inference_time:.1f}s")
+        return output
+
+    def load_best_from(self, path: str) -> None:
+        """Take the best params from a checkpoint of this package."""
+        if self.rec is None:
+            raise RuntimeError("call init_state() first")
+        params, _ = load_checkpoint(path)
+        self._rec_with(params)  # checks the keys and shapes
+        self.best_params = params

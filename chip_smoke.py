@@ -8,10 +8,10 @@ Phases, in order; any failure raises and the script exits nonzero:
 1. device: the card's name and power limit (``nvidia-smi``);
 2. build: every CUDA kernel of the package, from ``dr4sr_tpu_torch/ops/csrc``;
 3. kernels: the attention forward against its plain PyTorch version on the
-   card, at the serving (and training) shape and a stress shape, with and
-   without a key-padding mask (one fully masked row per batch), with its time
-   beside the plain version's, one PyTorch library call's and the least time
-   the card could take;
+   card, at the serving (and training) shape, the eval batch and a stress
+   shape, with and without a key-padding mask (one fully masked row per
+   batch), with its time beside the plain version's, one PyTorch library
+   call's and the least time the card could take;
 3b. the attention backward kernels likewise, against
    ``flash_attention_bwd_reference``, and the whole ``FlashAttention`` path
    against autograd through ``mha_reference``;
@@ -30,6 +30,12 @@ Phases, in order; any failure raises and the script exits nonzero:
 
 It prints one ``{"kernels": [...]}`` line, then as its last line
 ``{"ok": true, "device": {...}}``. It imports nothing of JAX.
+
+    python3 chip_smoke.py --controls
+
+runs only the card-vs-CPU gradient check of phase 5, once with each of a few
+deliberate faults patched into the backward route, and prints whether the
+check caught each (a ``control {...}`` line per fault).
 """
 
 from __future__ import annotations
@@ -50,10 +56,9 @@ from dr4sr_tpu_torch.data.dataset import prepare_datasets
 from dr4sr_tpu_torch.data.synthetic import markov_sequences, write_synthetic_dataset
 from dr4sr_tpu_torch.models.base import RecModel
 from dr4sr_tpu_torch.models.sasrec import SASRec
-from dr4sr_tpu_torch.ops import _build
+from dr4sr_tpu_torch.ops import _build, attention
 from dr4sr_tpu_torch.ops.attention import (
     FlashAttention,
-    flash_attention,
     flash_attention_bwd,
     flash_attention_bwd_reference,
     flash_attention_fwd,
@@ -96,8 +101,9 @@ TRAIN_CONFIG = {
              "test_metrics": ["ndcg", "recall"], "topk": 100},
 }
 # card vs CPU from the same weights and negatives, dropout 0, TF32 off: f32
-# sums run in another order (cuBLAS, the kernels, LayerNorm's reductions)
-GRAD_ATOL = 2e-5
+# sums run in another order (cuBLAS, the kernels, LayerNorm's reductions).
+# Each parameter's error is taken relative to its largest gradient.
+GRAD_RTOL = 1e-5
 LOSS_ATOL = 1e-5
 
 # (name, B, H, Lq, Lk, Dh, causal, dtype): the serving shape first; every
@@ -111,6 +117,8 @@ ATTENTION_CASES = [
     ("dh16_bf16", 16, 2, 100, 100, 16, True, torch.bfloat16),
     ("dh128_f32", 16, 2, 130, 130, 128, True, torch.float32),
 ]
+# forward only: the eval batch of the train path (evaluation takes no gradient)
+FWD_ONLY_CASES = [("eval_f32", 2048, 2, 50, 50, 32, True, torch.float32)]
 
 
 def log(msg: str) -> None:
@@ -177,8 +185,8 @@ def check_attention(seed, name, b, h, lq, lk, dh, causal, dtype):
     seqlen[0] = 0  # one fully masked row in every batch
     pad = torch.arange(lk, device="cuda")[None, :] >= seqlen[:, None]
     with torch.no_grad():
-        out = flash_attention(q, k, v, pad, causal)
-        out_nomask = flash_attention(q, k, v, None, causal)
+        out = flash_attention_fwd(q, k, v, pad, causal)[0]
+        out_nomask = flash_attention_fwd(q, k, v, None, causal)[0]
         torch.cuda.synchronize()
         ref = mha_reference(q, k, v, pad, causal)
         ref_nomask = mha_reference(q, k, v, None, causal)
@@ -245,9 +253,12 @@ def check_attention_bwd(seed, name, b, h, lq, lk, dh, causal, dtype):
     # autograd of mha_reference rounds neither p nor ds to bf16, so in bf16
     # the two may differ by one bf16 step of the gradient's own size as well
     rtol = PATH_RTOL[dtype]
-    path_err = _max_err(got, want)
-    excess = max(((g.float() - w.float()).abs() - rtol * w.float().abs()).max().item()
-                 for g, w in zip(got, want))
+    diffs = [(g.float() - w.float()).abs() for g, w in zip(got, want)]
+    path_err = max(d.max().item() for d in diffs)
+    # the size of the gradient where the path's error is largest
+    i = max(range(len(diffs)), key=lambda i: diffs[i].max().item())
+    path_grad_at_err = want[i].flatten()[diffs[i].argmax()].abs().item()
+    excess = max((d - rtol * w.float().abs()).max().item() for d, w in zip(diffs, want))
     if excess > ATOL_BWD[dtype]:
         raise AssertionError(f"{name}: FlashAttention grads vs autograd of mha_reference "
                              f"{path_err} > {ATOL_BWD[dtype]} + {rtol}·|grad|")
@@ -269,7 +280,8 @@ def check_attention_bwd(seed, name, b, h, lq, lk, dh, causal, dtype):
     bound_ms, bound_by = attention_bwd_bound_ms(q, k, pad, causal)
     case = {"case": name, "shape": [b, h, lq, lk, dh], "causal": causal,
             "dtype": str(dtype).replace("torch.", ""), "max_abs_err": err,
-            "path_max_abs_err": path_err, "atol": ATOL_BWD[dtype], "path_rtol": rtol, "ms": ms,
+            "path_max_abs_err": path_err, "path_grad_at_err": path_grad_at_err,
+            "atol": ATOL_BWD[dtype], "path_rtol": rtol, "ms": ms,
             "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound_ms,
             "bound_by": bound_by}
     log(f"kernel case bwd {json.dumps(case)}")
@@ -284,18 +296,21 @@ def serve(requests, card):
     gpu.recommend(requests[0][:BATCH], k=TOPK)  # warm-up: cuBLAS, allocator
     torch.cuda.synchronize()
 
-    flash_attention.launches = 0
+    flash_attention_fwd.launches = 0
+    flash_attention_bwd.launches = 0
     t0 = time.perf_counter()
     answers = [gpu.recommend(r, k=TOPK) for r in requests]
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = flash_attention.launches
+    launches = flash_attention_fwd.launches
+    bwd_launches = flash_attention_bwd.launches
 
     L = CONFIG["data"]["max_seq_len"]
     batches = sum(-(-len(r) // BATCH) for r in requests)
     want = CONFIG["model"]["layer_num"] * batches
-    if launches != want:
-        raise AssertionError(f"flash_attention launched {launches} times, expected {want}")
+    if launches != want or bwd_launches != 0:
+        raise AssertionError(f"serving launched the forward {launches} times (want {want}) "
+                             f"and the backward {bwd_launches} times (want 0)")
     for hist, (items, scores) in zip(requests, answers):
         if items.shape != (len(hist), TOPK) or not np.isfinite(scores).all():
             raise AssertionError("bad shape or non-finite scores")
@@ -333,10 +348,11 @@ def serve(requests, card):
               "checked_pass_s": wall, "batch_ms_p50": float(np.percentile(lat_ms, 50)),
               "batch_ms_p90": float(np.percentile(lat_ms, 90)), "batch_samples": len(lat_ms),
               "histories_per_s": SERVE_PASSES * len(flat) / (sum(lat_ms) / 1e3),
-              "attention_launches": launches, "card": card}
+              "attention_launches": launches, "attention_bwd_launches": bwd_launches,
+              "card": card}
     log(f"serve {json.dumps(result)}")
     profile_serve(gpu, requests)
-    return launches
+    return launches, bwd_launches
 
 
 def profile_serve(gpu, requests):
@@ -377,7 +393,8 @@ def _train_cfg(workdir, **train):
 
 def card_vs_cpu(datasets, workdir):
     """From the same initial weights, with dropout 0 and the same fed
-    negatives: the first step's gradients and 3 Adam steps' losses."""
+    negatives: the first step's gradients and 3 Adam steps' losses, card
+    against CPU. Returns the errors; :func:`check_card_vs_cpu` judges them."""
     cfg = _train_cfg(workdir)
     cfg["model"]["dropout_rate"] = 0.0
     rng = np.random.default_rng(0)
@@ -401,13 +418,22 @@ def card_vs_cpu(datasets, workdir):
             trainer.optimizer.step()
             losses.append(loss.item())
         runs[device] = (losses, grads)
-    grad_err = max((runs["cuda"][1][k] - g).abs().max().item() for k, g in runs["cpu"][1].items())
-    loss_err = max(abs(a - b) for a, b in zip(runs["cuda"][0], runs["cpu"][0]))
-    if grad_err > GRAD_ATOL or loss_err > LOSS_ATOL:
-        raise AssertionError(f"card vs CPU: grads {grad_err} (atol {GRAD_ATOL}), "
-                             f"losses {loss_err} (atol {LOSS_ATOL})")
-    return {"grad_max_abs_err": grad_err, "grad_atol": GRAD_ATOL, "loss_max_abs_err": loss_err,
+    abs_err = {k: (runs["cuda"][1][k] - g).abs().max().item() for k, g in runs["cpu"][1].items()}
+    rel_err = {k: abs_err[k] / max(g.abs().max().item(), 1e-30)
+               for k, g in runs["cpu"][1].items()}
+    worst = max(rel_err, key=rel_err.get)
+    return {"grad_max_rel_err": rel_err[worst], "grad_worst_param": worst,
+            "grad_worst_param_absmax": runs["cpu"][1][worst].abs().max().item(),
+            "grad_max_abs_err": max(abs_err.values()), "grad_rtol": GRAD_RTOL,
+            "loss_max_abs_err": max(abs(a - b) for a, b in zip(runs["cuda"][0], runs["cpu"][0])),
             "loss_atol": LOSS_ATOL, "losses_card": runs["cuda"][0], "losses_cpu": runs["cpu"][0]}
+
+
+def check_card_vs_cpu(parity):
+    if not (parity["grad_max_rel_err"] <= GRAD_RTOL and parity["loss_max_abs_err"] <= LOSS_ATOL):
+        raise AssertionError(f"card vs CPU: grads {parity['grad_max_rel_err']} of the largest "
+                             f"({parity['grad_worst_param']}; rtol {GRAD_RTOL}), "
+                             f"losses {parity['loss_max_abs_err']} (atol {LOSS_ATOL})")
 
 
 def bf16_steps(datasets, workdir, steps=5):
@@ -434,11 +460,15 @@ def train(card):
         return _train(card, workdir)
 
 
-def _train(card, workdir):
-    t0 = time.perf_counter()
+def _datasets(workdir):
     write_synthetic_dataset(workdir, name="amazon-toys", domain="toy", num_users=NUM_USERS,
                             num_items=NUM_ITEMS, seed=0)
-    datasets = prepare_datasets(TRAIN_CONFIG, root=workdir)
+    return prepare_datasets(TRAIN_CONFIG, root=workdir)
+
+
+def _train(card, workdir):
+    t0 = time.perf_counter()
+    datasets = _datasets(workdir)
     data_s = time.perf_counter() - t0
     steps_per_epoch = len(datasets[0].get_loader())
     eval_batches = len(datasets[1].get_loader())
@@ -446,14 +476,14 @@ def _train(card, workdir):
     epochs = TRAIN_CONFIG["train"]["epochs"]
 
     trainer = Trainer(_train_cfg(workdir), datasets, workdir=workdir, device="cuda")
-    flash_attention.launches = 0
+    flash_attention_fwd.launches = 0
     flash_attention_bwd.launches = 0
     t0 = time.perf_counter()
     val = trainer.fit()
     test = trainer.evaluate()
     torch.cuda.synchronize()
     fit_s = time.perf_counter() - t0
-    fwd_launches = flash_attention.launches
+    fwd_launches = flash_attention_fwd.launches
     bwd_launches = flash_attention_bwd.launches
 
     steps = epochs * steps_per_epoch
@@ -472,6 +502,7 @@ def _train(card, workdir):
                              f"5 x random ({random_recall})")
 
     parity = card_vs_cpu(datasets, workdir)
+    check_card_vs_cpu(parity)
     bf16 = bf16_steps(datasets, workdir)
 
     # timed steps (uncounted): one epoch, each step from host batch to done
@@ -517,10 +548,50 @@ def profile_train(trainer, steps=10):
     _log_profile(prof, wall_us)
 
 
+# deliberate faults in the backward route, each of which the card-vs-CPU
+# check should catch: the key-padding mask dropped, the causal mask dropped,
+# and the row log-sum-exp off by 1e-3 (every p scaled by e^-0.001)
+FAULTS = {
+    "no_key_padding_mask": lambda bwd: (
+        lambda q, k, v, o, do, lse, mask, causal: bwd(q, k, v, o, do, lse, None, causal)),
+    "not_causal": lambda bwd: (
+        lambda q, k, v, o, do, lse, mask, causal: bwd(q, k, v, o, do, lse, mask, False)),
+    "lse_plus_1e-3": lambda bwd: (
+        lambda q, k, v, o, do, lse, mask, causal: bwd(q, k, v, o, do, lse + 1e-3, mask, causal)),
+}
+
+
+def controls() -> int:
+    """``--controls``: the card-vs-CPU check with each of ``FAULTS`` patched
+    into ``FlashAttention.backward``'s call of the backward kernels."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_controls_") as workdir:
+        datasets = _datasets(workdir)
+        log(f"control {json.dumps({'fault': None, **card_vs_cpu(datasets, workdir)})}")
+        for name, fault in FAULTS.items():
+            # the wrapper adds to ``attention.flash_attention_bwd.launches``: the fault's
+            attention.flash_attention_bwd = fault(flash_attention_bwd)
+            attention.flash_attention_bwd.launches = 0
+            try:
+                parity = card_vs_cpu(datasets, workdir)
+            finally:
+                attention.flash_attention_bwd = flash_attention_bwd
+            try:
+                check_card_vs_cpu(parity)
+                caught = False
+            except AssertionError:
+                caught = True
+            log(f"control {json.dumps({'fault': name, 'caught': caught, **parity})}")
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
+    if sys.argv[1:] == ["--controls"]:
+        return controls()
 
     # 1. device
     kind = torch.cuda.get_device_name(0)
@@ -542,14 +613,14 @@ def main() -> int:
     # 3. kernels vs plain versions
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    fwd_cases = [check_attention(i, *c) for i, c in enumerate(ATTENTION_CASES)]
+    fwd_cases = [check_attention(i, *c) for i, c in enumerate(ATTENTION_CASES + FWD_ONLY_CASES)]
     bwd_cases = [check_attention_bwd(i, *c) for i, c in enumerate(ATTENTION_CASES)]
 
     # 4. serve through the kernels
     hist = markov_sequences(num_users=3000, num_items=NUM_ITEMS, min_len=1, max_len=80, seed=0)
     hist[0] = []  # one empty history
     requests = [hist[0:1000], hist[1000:2000], hist[2000:3000]]  # 1000 = 3·256 + 232
-    serve_launches = serve(requests, card)
+    serve_launches, serve_bwd_launches = serve(requests, card)
 
     # 5. train through the kernels
     train_fwd_launches, train_bwd_launches = train(card)
@@ -570,7 +641,7 @@ def main() -> int:
         "source": "dr4sr_tpu_torch/ops/csrc/flash_attention_bwd.cu",
         "replaces": "dr4sr_tpu/ops/attention.py:206",
         "launches": train_bwd_launches,
-        "launches_by_path": {"serve": 0, "train": train_bwd_launches},
+        "launches_by_path": {"serve": serve_bwd_launches, "train": train_bwd_launches},
         **{key: bwd_cases[0][key] for key in keys},
         "cases": bwd_cases,
     }]

@@ -8,12 +8,10 @@
 * :func:`flash_attention_bwd_reference` — plain PyTorch of the arithmetic of
   ``dr4sr_tpu/ops/attention.py::_flash_bwd_kernel``, its rounding points
   included: dq, dk, dv from q, k, v, o, dO and the mask.
-* :func:`flash_attention` — the hand-written CUDA forward kernel
+* :func:`flash_attention_fwd` — the hand-written CUDA forward kernel
   (``csrc/flash_attention_fwd.cu``), which replaces the Pallas TPU kernel
-  ``_flash_kernel``, differentiable through :class:`FlashAttention`. CUDA
-  tensors only.
-* :func:`flash_attention_fwd` — the forward kernel's launcher without
-  autograd, which can also return the row log-sum-exp.
+  ``_flash_kernel``; no autograd, and it can also return the row
+  log-sum-exp. CUDA tensors only.
 * :func:`flash_attention_bwd` — the hand-written CUDA backward kernels
   (``csrc/flash_attention_bwd.cu``), which replace ``_flash_bwd_kernel``.
   CUDA tensors only.
@@ -183,9 +181,11 @@ def flash_attention_fwd(
     want_lse: bool = False,
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Launch the forward kernel, without autograd: (o, lse), lse [B, H, Lq]
-    f32 (the row log-sum-exp, +inf on a fully masked row) or None. Counts
-    in ``flash_attention.launches``."""
-    b, h, lq, lk, dh = _check_inputs(q, k, v, key_padding_mask, "flash_attention")
+    f32 (the row log-sum-exp, +inf on a fully masked row) or None. q,k,v:
+    [B, H, L, Dh] contiguous CUDA tensors of one dtype (f32 or bf16), Dh in
+    {16, 32, 64, 128}; mask [B, Lk] bool (True = pad) or None. Raises on
+    anything else."""
+    b, h, lq, lk, dh = _check_inputs(q, k, v, key_padding_mask, "flash_attention_fwd")
     out = torch.empty_like(q)
     lse = torch.empty(b, h, lq, dtype=torch.float32, device=q.device) if want_lse else None
     if out.numel() == 0:
@@ -199,8 +199,11 @@ def flash_attention_fwd(
         )
     if err != 0:
         raise RuntimeError(f"flash_attention_fwd launch failed: cudaError_t {err}")
-    flash_attention.launches += 1
+    flash_attention_fwd.launches += 1
     return out, lse
+
+
+flash_attention_fwd.launches = 0  # forward kernel launches since the last reset
 
 
 def flash_attention_bwd(
@@ -214,7 +217,7 @@ def flash_attention_bwd(
     causal: bool = True,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The CUDA flash-attention backward: (dq, dk, dv) in the input dtype.
-    q, k, v as for :func:`flash_attention`; o and do [B, H, Lq, Dh] of q's
+    q, k, v as for :func:`flash_attention_fwd`; o and do [B, H, Lq, Dh] of q's
     dtype; lse [B, H, Lq] f32 from the forward. All contiguous CUDA
     tensors. Launches two kernels (dq, then dk/dv); raises on anything it
     does not take."""
@@ -275,24 +278,6 @@ class FlashAttention(torch.autograd.Function):
         else:
             grads = flash_attention_bwd(q, k, v, o, do, lse, key_padding_mask, ctx.causal)
         return (*grads, None, None)
-
-
-def flash_attention(
-    q: torch.Tensor,
-    k: torch.Tensor,
-    v: torch.Tensor,
-    key_padding_mask: Optional[torch.Tensor] = None,
-    causal: bool = True,
-) -> torch.Tensor:
-    """The CUDA flash-attention forward, differentiable. q,k,v: [B, H, L, Dh]
-    contiguous CUDA tensors of one dtype (f32 or bf16), Dh in {16, 32, 64,
-    128}; mask [B, Lk] bool (True = pad) or None. Raises on anything else."""
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention takes CUDA tensors, got {q.device}")
-    return FlashAttention.apply(q, k, v, key_padding_mask, causal)
-
-
-flash_attention.launches = 0  # forward kernel launches since the last reset
 
 
 def multihead_attention(

@@ -12,7 +12,7 @@ import torch
 
 from dr4sr_tpu.ops.attention import flash_attention as jax_flash
 from dr4sr_tpu.ops.attention import mha_reference as jax_reference
-from dr4sr_tpu_torch.ops.attention import flash_attention, mha_reference, multihead_attention
+from dr4sr_tpu_torch.ops.attention import flash_attention_fwd, mha_reference, multihead_attention
 
 
 def _inputs(seed, b, h, lq, lk, dh, seqlens):
@@ -43,13 +43,13 @@ def test_attention_matches_jax(name):
         jax_flash(*map(jnp.asarray, (q, k, v, mask)), causal=causal, interpret=True)
     )
     tq, tk, tv, tmask = map(torch.from_numpy, (q, k, v, mask))
-    flash_attention.launches = 0
+    flash_attention_fwd.launches = 0
     got = mha_reference(tq, tk, tv, tmask, causal).numpy()
     routed = multihead_attention(tq, tk, tv, tmask, causal).numpy()
     np.testing.assert_allclose(got, want, atol=2e-5)
     np.testing.assert_allclose(got, want_flash, atol=2e-5)
     np.testing.assert_array_equal(routed, got)
-    assert flash_attention.launches == 0  # the CPU route never reaches the kernel
+    assert flash_attention_fwd.launches == 0  # the CPU route never reaches the kernel
     fully_masked = np.asarray(seqlens) == 0
     if fully_masked.any():
         assert (got[fully_masked] == 0.0).all()
@@ -71,7 +71,7 @@ def test_bf16_follows_tpu_policy():
 def test_kernel_takes_cuda_tensors_only():
     q = torch.zeros(1, 1, 4, 32)
     with pytest.raises(ValueError, match="CUDA"):
-        flash_attention(q, q, q)
+        flash_attention_fwd(q, q, q)
     meta = torch.empty(1, 1, 4, 32, device="meta")
     with pytest.raises(ValueError, match="no attention route"):
         multihead_attention(meta, meta, meta)

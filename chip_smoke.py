@@ -7,11 +7,13 @@ Phases, in order; any failure raises and the script exits nonzero:
 
 1. device: the card's name and power limit (``nvidia-smi``);
 2. build: every CUDA kernel of the package, from ``dr4sr_tpu_torch/ops/csrc``;
+   the forward's machine code (``cuobjdump -sass``) must hold tensor-core
+   ``HMMA`` instructions in every instantiation, bf16 and f32;
 3. kernels: the attention forward against its plain PyTorch version on the
    card, at the serving (and training) shape, the eval batch and a stress
    shape, with and without a key-padding mask (one fully masked row per
-   batch), with its time beside the plain version's, one PyTorch library
-   call's and the least time the card could take;
+   batch), with its device time per call beside the plain version's, one
+   PyTorch library call's and the least time the card could take;
 3b. the attention backward kernels likewise, against
    ``flash_attention_bwd_reference``, and the whole ``FlashAttention`` path
    against autograd through ``mha_reference``;
@@ -29,7 +31,8 @@ Phases, in order; any failure raises and the script exits nonzero:
    a profile of a few steps.
 
 It prints one ``{"kernels": [...]}`` line, then as its last line
-``{"ok": true, "device": {...}}``. It imports nothing of JAX.
+``{"ok": true, "device": {...}}``. It imports nothing of JAX. Kernel times
+are device time per call (:func:`device_ms`).
 
     python3 chip_smoke.py --controls
 
@@ -42,7 +45,8 @@ from __future__ import annotations
 
 import copy
 import json
-import statistics
+import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -68,9 +72,13 @@ from dr4sr_tpu_torch.serve import Recommender
 from dr4sr_tpu_torch.train.trainer import Trainer
 
 # H100 SXM published peaks (NVIDIA data sheet): HBM3 bytes/s, and dense
-# FLOP/s for f32 on CUDA cores and for bf16 on tensor cores.
+# tensor-core FLOP/s. A bound is the least time the card could take for the
+# work, whatever route a kernel takes, so f32 products count at the faster
+# of the card's two f32-accurate routes: 3xTF32 on tensor cores (495
+# TFLOP/s of TF32, three products each: 165 TFLOP/s), not FMA on CUDA cores
+# (67 TFLOP/s).
 PEAK_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
+PEAK_FLOPS = {torch.float32: 495e12 / 3, torch.bfloat16: 989e12}
 ATOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}  # as tests/test_attention.py
 ATOL_BWD = {torch.float32: 3e-4, torch.bfloat16: 8e-2}  # as tests/test_attention.py
 PATH_RTOL = {torch.float32: 0.0, torch.bfloat16: 2.0**-7}  # one bf16 step, relative
@@ -125,21 +133,27 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def time_ms(fn, reps: int = 21, inner: int = 5) -> float:
-    """Median over ``reps`` CUDA-event windows of ``inner`` calls, per call."""
+TIMING = "device time per call: torch.profiler's kernel time over 50 calls, summed, / 50"
+
+
+def device_ms(fn, calls: int = 50) -> float:
+    """Device time per call of ``fn``: the duration of every device activity
+    that ``calls`` calls launch, as ``torch.profiler`` reads it, summed and
+    divided by ``calls``, after one warm-up call. The host's enqueue time and
+    the gaps between launches are not in it (a CUDA-event window over a few
+    calls at small shapes measures them instead)."""
+    from torch.profiler import ProfilerActivity, profile
+
     fn()
     torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    times = []
-    for _ in range(reps):
-        start.record()
-        for _ in range(inner):
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
             fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / inner)
-    return statistics.median(times)
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in _device_rows(prof.key_averages()))
+    if not us > 0:
+        raise AssertionError("the profiler saw no device time")
+    return us / calls / 1e3
 
 
 def _unmasked_pairs(pad, lq, lk, causal):
@@ -178,6 +192,9 @@ def attention_bwd_bound_ms(q, k, pad, causal):
 
 
 def check_attention(seed, name, b, h, lq, lk, dh, causal, dtype):
+    """The forward kernel against ``mha_reference``, with a key-padding mask
+    (one fully masked row, which must be exactly 0) and without; then its
+    device time beside the plain version's and SDPA's."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
     q, k, v = (torch.randn(b, h, n, dh, generator=gen, device="cuda").to(dtype)
                for n in (lq, lk, lk))
@@ -204,14 +221,14 @@ def check_attention(seed, name, b, h, lq, lk, dh, causal, dtype):
     if causal:
         attend = attend & torch.ones(lq, lk, dtype=torch.bool, device="cuda").tril()
     with torch.no_grad():
-        ms = time_ms(lambda: flash_attention_fwd(q, k, v, pad, causal))
-        plain_ms = time_ms(lambda: mha_reference(q, k, v, pad, causal))
-        library_ms = time_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=attend))
+        ms = device_ms(lambda: flash_attention_fwd(q, k, v, pad, causal))
+        plain_ms = device_ms(lambda: mha_reference(q, k, v, pad, causal))
+        library_ms = device_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=attend))
     bound_ms, bound_by = attention_bound_ms(q, k, v, pad, causal)
     case = {"case": name, "shape": [b, h, lq, lk, dh], "causal": causal,
             "dtype": str(dtype).replace("torch.", ""), "max_abs_err": err, "atol": ATOL[dtype],
             "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by}
+            "bound_ms": bound_ms, "bound_by": bound_by, "timing": TIMING}
     log(f"kernel case {json.dumps(case)}")
     return case
 
@@ -265,8 +282,8 @@ def check_attention_bwd(seed, name, b, h, lq, lk, dh, causal, dtype):
 
     with torch.no_grad():
         o, lse = flash_attention_fwd(q, k, v, pad, causal, want_lse=True)
-        ms = time_ms(lambda: flash_attention_bwd(q, k, v, o, do, lse, pad, causal))
-        plain_ms = time_ms(lambda: flash_attention_bwd_reference(q, k, v, o, do, pad, causal))
+        ms = device_ms(lambda: flash_attention_bwd(q, k, v, o, do, lse, pad, causal))
+        plain_ms = device_ms(lambda: flash_attention_bwd_reference(q, k, v, o, do, pad, causal))
     # SDPA gives NaN on fully masked rows, so its yardstick inputs have none;
     # its graph is built once and only the backward is timed
     lib_len = torch.randint(1, lk + 1, (b,), generator=gen, device="cuda")
@@ -275,7 +292,7 @@ def check_attention_bwd(seed, name, b, h, lq, lk, dh, causal, dtype):
         attend = attend & torch.ones(lq, lk, dtype=torch.bool, device="cuda").tril()
     leaves = [t.clone().requires_grad_() for t in (q, k, v)]
     out = F.scaled_dot_product_attention(*leaves, attn_mask=attend)
-    library_ms = time_ms(lambda: torch.autograd.grad(out, leaves, do, retain_graph=True))
+    library_ms = device_ms(lambda: torch.autograd.grad(out, leaves, do, retain_graph=True))
     del out, leaves
     bound_ms, bound_by = attention_bwd_bound_ms(q, k, pad, causal)
     case = {"case": name, "shape": [b, h, lq, lk, dh], "causal": causal,
@@ -283,7 +300,7 @@ def check_attention_bwd(seed, name, b, h, lq, lk, dh, causal, dtype):
             "path_max_abs_err": path_err, "path_grad_at_err": path_grad_at_err,
             "atol": ATOL_BWD[dtype], "path_rtol": rtol, "ms": ms,
             "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by}
+            "bound_by": bound_by, "timing": TIMING}
     log(f"kernel case bwd {json.dumps(case)}")
     return case
 
@@ -370,16 +387,27 @@ def profile_serve(gpu, requests):
     _log_profile(prof, wall_us)
 
 
+def _device_rows(events):
+    """The device's own activity: kernels, copies and sets. A user annotation
+    (``Optimizer.step#Adam.step``) also has a device row, which spans the
+    kernels launched inside it and would count them twice."""
+    return [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)]
+
+
 def _log_profile(prof, wall_us):
     """Device time by kernel (kernel rows only: an op's row repeats the
     device time of its kernels), host time by op, and the busy share."""
     events = prof.key_averages()
-    kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
+    kernels = _device_rows(events)
     device_us = sum(e.self_device_time_total for e in kernels)
     log(f"profile wall_us {wall_us:.1f} device_busy_us {device_us:.1f} "
         f"busy_share {device_us / wall_us:.4f} (profiler on)")
-    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
-        log(f"  device_us {e.self_device_time_total:10.1f} calls {e.count:6d} {e.key[:90]}")
+    # the top 12 by device time, and the attention kernels wherever they rank
+    for rank, e in enumerate(sorted(kernels, key=lambda e: -e.self_device_time_total), 1):
+        if rank <= 12 or "flash_" in e.key:
+            log(f"  rank {rank:3d} device_us {e.self_device_time_total:10.1f} "
+                f"calls {e.count:6d} {e.key[:90]}")
     for e in sorted(events, key=lambda e: -e.self_cpu_time_total)[:12]:
         log(f"  host_us {e.self_cpu_time_total:10.1f} calls {e.count:6d} {e.key[:90]}")
 
@@ -586,6 +614,31 @@ def controls() -> int:
     return 0
 
 
+def hmma_counts(name):
+    """Tensor-core instructions (``HMMA``) in each instantiation of the
+    kernel library ``name``'s machine code, by ``<dtype>_dh<Dh>``."""
+    cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", _build.library_path(name)], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    counts, key = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            m = re.search(r"kernelI(f|13__nv_bfloat16)Li(\d+)E", line)
+            key = None if m is None else f"{'f32' if m.group(1) == 'f' else 'bf16'}_dh{m.group(2)}"
+            if key is not None:
+                counts[key] = 0
+        elif key is not None and "HMMA" in line:
+            counts[key] += 1
+    return counts
+
+
+def check_tensor_cores(counts):
+    want = {f"{d}_dh{dh}" for d in ("bf16", "f32") for dh in attention.HEAD_DIMS}
+    if set(counts) != want or not all(counts.values()):
+        raise AssertionError(f"the forward kernel is not on tensor cores in every "
+                             f"instantiation: HMMA counts {counts}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -607,8 +660,11 @@ def main() -> int:
     log(f"build {time.perf_counter() - t0:.1f}s: {sorted(paths)}")
     for name in paths:
         for line in _build.build_log(name).splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "Compiling entry" in line:
                 log(f"  ptxas {name}: {line.strip()}")
+    fwd_hmma = hmma_counts("flash_attention_fwd")
+    log(f"sass HMMA in flash_attention_fwd: {json.dumps(fwd_hmma)}")
+    check_tensor_cores(fwd_hmma)
 
     # 3. kernels vs plain versions
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -634,6 +690,7 @@ def main() -> int:
         "launches": train_fwd_launches,
         "launches_by_path": {"serve": serve_launches, "train": train_fwd_launches},
         **{key: fwd_cases[0][key] for key in keys},
+        "sass_hmma": fwd_hmma,
         "cases": fwd_cases,
     }, {
         "name": "flash_attention_bwd",

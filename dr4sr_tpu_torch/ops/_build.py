@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` has a plain C entry point and compiles on its own
 into ``dr4sr_tpu_torch/_build/<name>-<hash>.so`` (the directory is listed in
-``.gitignore``). The hash covers the source and the flags, so an edited
-kernel rebuilds and an unchanged one loads at once. ``nvcc``'s output
+``.gitignore``). The hash covers the source, every header in ``csrc/``
+(``*.cuh``, ``*.h``) and the flags, so an edited kernel or header rebuilds
+and an unchanged one loads at once. ``nvcc``'s output
 (``-Xptxas -v``: registers, shared memory, spills) is kept beside the
 library as ``<name>-<hash>.log``.
 
@@ -16,6 +17,7 @@ from __future__ import annotations
 import concurrent.futures
 import ctypes
 import functools
+import glob
 import hashlib
 import os
 import shutil
@@ -46,10 +48,19 @@ def source_path(name: str) -> str:
     return os.path.join(CSRC_DIR, name + ".cu")
 
 
+def _headers():
+    return sorted(glob.glob(os.path.join(CSRC_DIR, "*.cuh")) +
+                  glob.glob(os.path.join(CSRC_DIR, "*.h")))
+
+
 def library_path(name: str) -> str:
-    with open(source_path(name), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return os.path.join(BUILD_DIR, f"{name}-{digest}.so")
+    """``BUILD_DIR/<name>-<hash>.so``; the hash covers the source, every
+    header of ``csrc/`` (any kernel may include any of them) and the flags."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in (source_path(name), *_headers()):
+        with open(path, "rb") as f:
+            h.update(os.path.basename(path).encode() + b"\0" + f.read())
+    return os.path.join(BUILD_DIR, f"{name}-{h.hexdigest()[:16]}.so")
 
 
 def build(name: str) -> str:

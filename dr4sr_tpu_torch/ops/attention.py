@@ -10,8 +10,11 @@
   included: dq, dk, dv from q, k, v, o, dO and the mask.
 * :func:`flash_attention_fwd` — the hand-written CUDA forward kernel
   (``csrc/flash_attention_fwd.cu``), which replaces the Pallas TPU kernel
-  ``_flash_kernel``; no autograd, and it can also return the row
-  log-sum-exp. CUDA tensors only.
+  ``_flash_kernel``: q·kᵀ and p·v on tensor cores (``mma.sync``), bf16
+  operands for bf16 inputs and split TF32 (3xTF32, f32-accurate) for f32
+  inputs, with the softmax statistics in f32; no autograd, and it can also
+  return the row log-sum-exp. CUDA tensors only, contiguous and 16-byte
+  aligned (the kernel copies 16-byte chunks with ``cp.async``).
 * :func:`flash_attention_bwd` — the hand-written CUDA backward kernels
   (``csrc/flash_attention_bwd.cu``), which replace ``_flash_bwd_kernel``.
   CUDA tensors only.
@@ -165,7 +168,17 @@ def _check_inputs(q, k, v, key_padding_mask, name):
             raise TypeError("q, k, v must share a dtype")
         if not t.is_contiguous():
             raise ValueError(f"{name} takes contiguous tensors")
+    _check_aligned((q, k, v), name)
     return b, h, lq, lk, dh
+
+
+def _check_aligned(tensors, name):
+    """The kernels copy q, k, v in 16-byte chunks: each must start on a
+    16-byte boundary (a view at an offset may not)."""
+    for t in tensors:
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} takes 16-byte aligned tensors, got a data pointer at "
+                             f"{t.data_ptr() % 16} bytes past a boundary")
 
 
 def _ptr(t: Optional[torch.Tensor]):

@@ -7,14 +7,15 @@ Phases, in order; any failure raises and the script exits nonzero:
 
 1. device: the card's name and power limit (``nvidia-smi``);
 2. build: every CUDA kernel of the package, from ``dr4sr_tpu_torch/ops/csrc``;
-   the forward's machine code (``cuobjdump -sass``) must hold tensor-core
-   ``HMMA`` instructions in every instantiation, bf16 and f32;
+   the machine code (``cuobjdump -sass``) of both attention libraries must
+   hold tensor-core ``HMMA`` instructions in every instantiation of every
+   kernel that does products, bf16 and f32;
 3. kernels: the attention forward against its plain PyTorch version on the
    card, at the serving (and training) shape, the eval batch and a stress
    shape, with and without a key-padding mask (one fully masked row per
    batch), with its device time per call beside the plain version's, one
    PyTorch library call's and the least time the card could take;
-3b. the attention backward kernels likewise, against
+3b. the attention backward likewise, against
    ``flash_attention_bwd_reference``, and the whole ``FlashAttention`` path
    against autograd through ``mha_reference``;
 4. serve: ``Recommender(device="cuda")`` answers three requests of 1,000
@@ -238,9 +239,9 @@ def _max_err(got, want):
 
 
 def check_attention_bwd(seed, name, b, h, lq, lk, dh, causal, dtype):
-    """The backward kernels against ``flash_attention_bwd_reference`` on the
-    same o, with a key-padding mask (one fully masked row) and without; the
-    whole ``FlashAttention`` path against autograd through ``mha_reference``."""
+    """The backward against ``flash_attention_bwd_reference`` on the same o,
+    with a key-padding mask (one fully masked row) and without; the whole
+    ``FlashAttention`` path against autograd through ``mha_reference``."""
     gen = torch.Generator(device="cuda").manual_seed(1000 + seed)
     q, k, v = (torch.randn(b, h, n, dh, generator=gen, device="cuda").to(dtype)
                for n in (lq, lk, lk))
@@ -296,7 +297,9 @@ def check_attention_bwd(seed, name, b, h, lq, lk, dh, causal, dtype):
     del out, leaves
     bound_ms, bound_by = attention_bwd_bound_ms(q, k, pad, causal)
     case = {"case": name, "shape": [b, h, lq, lk, dh], "causal": causal,
-            "dtype": str(dtype).replace("torch.", ""), "max_abs_err": err,
+            "dtype": str(dtype).replace("torch.", ""),
+            "kernels_per_call": attention._bwd_plan(lq, lk, dh)[0],
+            "max_abs_err": err,
             "path_max_abs_err": path_err, "path_grad_at_err": path_grad_at_err,
             "atol": ATOL_BWD[dtype], "path_rtol": rtol, "ms": ms,
             "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound_ms,
@@ -516,7 +519,12 @@ def _train(card, workdir):
 
     steps = epochs * steps_per_epoch
     want_fwd = layers * (steps + (epochs + 1) * eval_batches)  # val every epoch, then test
-    want_bwd = layers * steps * 2  # two CUDA kernels per backward: dq, then dk/dv
+    L = TRAIN_CONFIG["data"]["max_seq_len"]
+    dh = TRAIN_CONFIG["model"]["embed_dim"] // TRAIN_CONFIG["model"]["head_num"]
+    per_call = attention._bwd_plan(L, L, dh)[0]
+    if per_call != 1:  # the key axis is one tile: one kernel, no scratch
+        raise AssertionError(f"the train shape's backward launches {per_call} kernels, not 1")
+    want_bwd = layers * steps * per_call
     if fwd_launches != want_fwd or bwd_launches != want_bwd:
         raise AssertionError(f"launches: forward {fwd_launches} (want {want_fwd}), "
                              f"backward {bwd_launches} (want {want_bwd})")
@@ -614,29 +622,43 @@ def controls() -> int:
     return 0
 
 
+# the backward's pre-pass (rowsum(dO ⊙ o), and dq zeroed), which does no products
+NO_PRODUCTS = {"flash_bwd_prep_kernel"}
+
+
 def hmma_counts(name):
-    """Tensor-core instructions (``HMMA``) in each instantiation of the
-    kernel library ``name``'s machine code, by ``<dtype>_dh<Dh>``."""
+    """Tensor-core instructions (``HMMA``) in the kernel library ``name``'s
+    machine code: {kernel: {instantiation: count}}, an instantiation named
+    ``<dtype>_dh<Dh>`` and ``_mode<m>`` for a third template argument."""
     cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
     sass = subprocess.run([cuobjdump, "-sass", _build.library_path(name)], capture_output=True,
                           text=True, check=True, timeout=300).stdout
-    counts, key = {}, None
+    counts, cell = {}, None
     for line in sass.splitlines():
         if "Function :" in line:
-            m = re.search(r"kernelI(f|13__nv_bfloat16)Li(\d+)E", line)
-            key = None if m is None else f"{'f32' if m.group(1) == 'f' else 'bf16'}_dh{m.group(2)}"
-            if key is not None:
-                counts[key] = 0
-        elif key is not None and "HMMA" in line:
-            counts[key] += 1
+            # the kernel's own length-prefixed name, after the namespace's
+            m = re.search(r"\d(flash_\w+?_kernel)I(f|13__nv_bfloat16)((?:Li\d+E)*)", line)
+            cell = None
+            if m is not None:
+                args = re.findall(r"Li(\d+)E", m.group(3))
+                inst = "f32" if m.group(2) == "f" else "bf16"
+                inst += "".join(f"_{tag}{a}" for tag, a in zip(("dh", "mode"), args))
+                cell = counts.setdefault(m.group(1), {})
+                cell[inst] = 0
+        elif cell is not None and "HMMA" in line:
+            cell[inst] += 1
     return counts
 
 
-def check_tensor_cores(counts):
+def check_tensor_cores(name, counts):
+    """Every instantiation of every kernel of the library that does products
+    holds HMMA, and together they cover both dtypes and every head dim."""
     want = {f"{d}_dh{dh}" for d in ("bf16", "f32") for dh in attention.HEAD_DIMS}
-    if set(counts) != want or not all(counts.values()):
-        raise AssertionError(f"the forward kernel is not on tensor cores in every "
-                             f"instantiation: HMMA counts {counts}")
+    products = {k: c for k, c in counts.items() if k not in NO_PRODUCTS}
+    covered = {re.sub(r"_mode\d+$", "", i) for insts in products.values() for i in insts}
+    if covered != want or not all(all(insts.values()) for insts in products.values()):
+        raise AssertionError(f"{name}: not on tensor cores in every instantiation of every "
+                             f"kernel that does products: HMMA counts {products}")
 
 
 def main() -> int:
@@ -662,9 +684,11 @@ def main() -> int:
         for line in _build.build_log(name).splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 log(f"  ptxas {name}: {line.strip()}")
-    fwd_hmma = hmma_counts("flash_attention_fwd")
-    log(f"sass HMMA in flash_attention_fwd: {json.dumps(fwd_hmma)}")
-    check_tensor_cores(fwd_hmma)
+    hmma = {}
+    for name in ("flash_attention_fwd", "flash_attention_bwd"):
+        hmma[name] = hmma_counts(name)
+        log(f"sass HMMA in {name}: {json.dumps(hmma[name])}")
+        check_tensor_cores(name, hmma[name])
 
     # 3. kernels vs plain versions
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -690,7 +714,7 @@ def main() -> int:
         "launches": train_fwd_launches,
         "launches_by_path": {"serve": serve_launches, "train": train_fwd_launches},
         **{key: fwd_cases[0][key] for key in keys},
-        "sass_hmma": fwd_hmma,
+        "sass_hmma": hmma["flash_attention_fwd"],
         "cases": fwd_cases,
     }, {
         "name": "flash_attention_bwd",
@@ -700,6 +724,7 @@ def main() -> int:
         "launches": train_bwd_launches,
         "launches_by_path": {"serve": serve_bwd_launches, "train": train_bwd_launches},
         **{key: bwd_cases[0][key] for key in keys},
+        "sass_hmma": hmma["flash_attention_bwd"],
         "cases": bwd_cases,
     }]
     print(json.dumps({"kernels": kernels}))

@@ -36,6 +36,7 @@ ATOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
 EMULATED_MMA_HEADER = r"""
 #pragma once
 #include <algorithm>
+#include <atomic>
 #include <barrier>
 #include <climits>
 #include <cmath>
@@ -80,6 +81,16 @@ inline uint16_t bf16_bits(float f) {  // round to nearest even
 inline float bf16_value(uint16_t b) { return __uint_as_float(static_cast<uint32_t>(b) << 16); }
 inline __nv_bfloat162 __floats2bfloat162_rn(float a, float b) {
   return {{bf16_bits(a)}, {bf16_bits(b)}};
+}
+inline __nv_bfloat16 __float2bfloat16(float f) { return {bf16_bits(f)}; }
+inline float __bfloat162float(__nv_bfloat16 b) { return bf16_value(b.x); }
+
+inline float2 atomicAdd(float2* p, float2 v) {
+  return {std::atomic_ref<float>(p->x).fetch_add(v.x), std::atomic_ref<float>(p->y).fetch_add(v.y)};
+}
+inline cudaError_t cudaMemsetAsync(void* p, int value, size_t n, cudaStream_t) {
+  std::memset(p, value, n);
+  return cudaSuccess;
 }
 
 // a block runs as one std::thread per CUDA thread; warp collectives meet in
@@ -244,28 +255,36 @@ inline uint32_t pack_bf16x2(float lo, float hi) {
 """
 
 
-@pytest.fixture(scope="module")
-def emulated_fwd(tmp_path_factory):
-    """The kernel's C entry point, built from the package's source."""
+def emulated_library(source, d):
+    """Compile the CUDA source ``source`` (a path) with g++ in the directory
+    ``d`` against the emulation above; return the loaded ``ctypes.CDLL``.
+    Skips the calling test when there is no g++."""
     if shutil.which("g++") is None:
         pytest.skip("g++ is needed to build the emulated kernel")
-    d = tmp_path_factory.mktemp("emulated_fwd")
-    with open(_build.source_path("flash_attention_fwd")) as f:
+    with open(source) as f:
         src = f.read()
     shared = "extern __shared__ __align__(16) unsigned char smem[];"
     assert shared in src and "<<<" in src
     src = src.replace(shared, "unsigned char* smem = emulated_smem();")
-    src = re.sub(r"kernel<<<(.*?)>>>\(", r"emulated_launch(kernel, \1, ", src, flags=re.S)
+    src = re.sub(r"(\w+)<<<(.*?)>>>\(", r"emulated_launch(\1, \2, ", src, flags=re.S)
     (d / "attention_mma.cuh").write_text(EMULATED_MMA_HEADER)  # found first: beside the source
-    (d / "flash_attention_fwd.cpp").write_text(src)
-    so = d / "flash_attention_fwd.so"
+    cpp = d / "kernel.cpp"
+    cpp.write_text(src)
+    so = d / "kernel.so"
     proc = subprocess.run(
-        ["g++", "-std=c++20", "-O1", "-shared", "-fPIC", "-pthread", "-o", str(so),
-         str(d / "flash_attention_fwd.cpp")],
+        ["g++", "-std=c++20", "-O1", "-shared", "-fPIC", "-pthread", "-o", str(so), str(cpp)],
         capture_output=True, text=True, timeout=300,
     )
     assert proc.returncode == 0, proc.stderr
-    fn = ctypes.CDLL(str(so)).dr4sr_flash_attention_fwd
+    return ctypes.CDLL(str(so))
+
+
+@pytest.fixture(scope="module")
+def emulated_fwd(tmp_path_factory):
+    """The kernel's C entry point, built from the package's source."""
+    lib = emulated_library(_build.source_path("flash_attention_fwd"),
+                           tmp_path_factory.mktemp("emulated_fwd"))
+    fn = lib.dr4sr_flash_attention_fwd
     fn.argtypes = list(attention._FWD_ARGTYPES)
     fn.restype = ctypes.c_int
     return fn

@@ -83,6 +83,7 @@ PEAK_FLOPS = {torch.float32: 495e12 / 3, torch.bfloat16: 989e12}
 ATOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}  # as tests/test_attention.py
 ATOL_BWD = {torch.float32: 3e-4, torch.bfloat16: 8e-2}  # as tests/test_attention.py
 PATH_RTOL = {torch.float32: 0.0, torch.bfloat16: 2.0**-7}  # one bf16 step, relative
+BWD_KEY_TILE = 64  # the backward is one kernel a call when Lk fits this tile, else two
 
 # amazon-toys SASRec: configs/{amazon-toys,basemodel,sasrec}.yaml, written out
 NUM_ITEMS = 11925
@@ -253,8 +254,12 @@ def check_attention_bwd(seed, name, b, h, lq, lk, dh, causal, dtype):
     with torch.no_grad():
         for mask in (pad, None):
             o, lse = flash_attention_fwd(q, k, v, mask, causal, want_lse=True)
+            before = flash_attention_bwd.launches
             got = flash_attention_bwd(q, k, v, o, do, lse, mask, causal)
+            kernels_per_call = flash_attention_bwd.launches - before
             torch.cuda.synchronize()
+            if kernels_per_call != (1 if lk <= BWD_KEY_TILE else 2):
+                raise AssertionError(f"{name}: the backward launched {kernels_per_call} kernels")
             want = flash_attention_bwd_reference(q, k, v, o, do, mask, causal)
             if not all(torch.isfinite(g).all() for g in got):
                 raise AssertionError(f"{name}: non-finite backward output")
@@ -298,7 +303,7 @@ def check_attention_bwd(seed, name, b, h, lq, lk, dh, causal, dtype):
     bound_ms, bound_by = attention_bwd_bound_ms(q, k, pad, causal)
     case = {"case": name, "shape": [b, h, lq, lk, dh], "causal": causal,
             "dtype": str(dtype).replace("torch.", ""),
-            "kernels_per_call": attention._bwd_plan(lq, lk, dh)[0],
+            "kernels_per_call": kernels_per_call,
             "max_abs_err": err,
             "path_max_abs_err": path_err, "path_grad_at_err": path_grad_at_err,
             "atol": ATOL_BWD[dtype], "path_rtol": rtol, "ms": ms,
@@ -519,12 +524,9 @@ def _train(card, workdir):
 
     steps = epochs * steps_per_epoch
     want_fwd = layers * (steps + (epochs + 1) * eval_batches)  # val every epoch, then test
-    L = TRAIN_CONFIG["data"]["max_seq_len"]
-    dh = TRAIN_CONFIG["model"]["embed_dim"] // TRAIN_CONFIG["model"]["head_num"]
-    per_call = attention._bwd_plan(L, L, dh)[0]
-    if per_call != 1:  # the key axis is one tile: one kernel, no scratch
-        raise AssertionError(f"the train shape's backward launches {per_call} kernels, not 1")
-    want_bwd = layers * steps * per_call
+    # L = 50 keys fit one tile: one backward kernel a layer and step
+    assert TRAIN_CONFIG["data"]["max_seq_len"] <= BWD_KEY_TILE
+    want_bwd = layers * steps
     if fwd_launches != want_fwd or bwd_launches != want_bwd:
         raise AssertionError(f"launches: forward {fwd_launches} (want {want_fwd}), "
                              f"backward {bwd_launches} (want {want_bwd})")
@@ -622,14 +624,16 @@ def controls() -> int:
     return 0
 
 
-# the backward's pre-pass (rowsum(dO ⊙ o), and dq zeroed), which does no products
-NO_PRODUCTS = {"flash_bwd_prep_kernel"}
+# kernels that do no products, by library: the backward's f32 pre-pass
+# (rowsum(dO ⊙ o), and dq zeroed for the atomics)
+NO_PRODUCTS = {"flash_attention_bwd": {"flash_bwd_prep_kernel"}}
 
 
 def hmma_counts(name):
     """Tensor-core instructions (``HMMA``) in the kernel library ``name``'s
     machine code: {kernel: {instantiation: count}}, an instantiation named
-    ``<dtype>_dh<Dh>`` and ``_mode<m>`` for a third template argument."""
+    by its template arguments: ``<dtype>`` if it has a type argument, then
+    ``dh<Dh>`` and ``mode<m>`` for its integer ones, joined by ``_``."""
     cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
     sass = subprocess.run([cuobjdump, "-sass", _build.library_path(name)], capture_output=True,
                           text=True, check=True, timeout=300).stdout
@@ -637,12 +641,13 @@ def hmma_counts(name):
     for line in sass.splitlines():
         if "Function :" in line:
             # the kernel's own length-prefixed name, after the namespace's
-            m = re.search(r"\d(flash_\w+?_kernel)I(f|13__nv_bfloat16)((?:Li\d+E)*)", line)
+            m = re.search(r"\d(flash_\w+?_kernel)I(f|13__nv_bfloat16)?((?:Li\d+E)*)", line)
             cell = None
             if m is not None:
+                parts = [{"f": "f32", "13__nv_bfloat16": "bf16"}[m.group(2)]] if m.group(2) else []
                 args = re.findall(r"Li(\d+)E", m.group(3))
-                inst = "f32" if m.group(2) == "f" else "bf16"
-                inst += "".join(f"_{tag}{a}" for tag, a in zip(("dh", "mode"), args))
+                parts += [f"{tag}{a}" for tag, a in zip(("dh", "mode"), args)]
+                inst = "_".join(parts)
                 cell = counts.setdefault(m.group(1), {})
                 cell[inst] = 0
         elif cell is not None and "HMMA" in line:
@@ -654,7 +659,9 @@ def check_tensor_cores(name, counts):
     """Every instantiation of every kernel of the library that does products
     holds HMMA, and together they cover both dtypes and every head dim."""
     want = {f"{d}_dh{dh}" for d in ("bf16", "f32") for dh in attention.HEAD_DIMS}
-    products = {k: c for k, c in counts.items() if k not in NO_PRODUCTS}
+    if not NO_PRODUCTS.get(name, set()) <= set(counts):
+        raise AssertionError(f"{name}: no kernel {NO_PRODUCTS[name]} in the machine code")
+    products = {k: c for k, c in counts.items() if k not in NO_PRODUCTS.get(name, ())}
     covered = {re.sub(r"_mode\d+$", "", i) for insts in products.values() for i in insts}
     if covered != want or not all(all(insts.values()) for insts in products.values()):
         raise AssertionError(f"{name}: not on tensor cores in every instantiation of every "

@@ -133,27 +133,14 @@ _BWD_ARGTYPES = (
     + [ctypes.c_int] * 7  # batch, heads, lq, lk, head_dim, causal, is_bf16
     + [ctypes.c_void_p]  # stream
 )
-# lq, lk, head_dim, *scratch floats per (b, h) → kernels per call
-_BWD_PLAN_ARGTYPES = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_longlong)]
 
 
 @functools.cache
-def _entry(name: str, argtypes: tuple, symbol: Optional[str] = None):
-    fn = getattr(_build.load(name), "dr4sr_" + (symbol or name))
+def _entry(name: str, argtypes: tuple):
+    fn = getattr(_build.load(name), "dr4sr_" + name)
     fn.argtypes = list(argtypes)
     fn.restype = ctypes.c_int
     return fn
-
-
-def _bwd_plan(lq: int, lk: int, dh: int) -> Tuple[int, int]:
-    """(kernels one backward call launches, f32 scratch floats per (b, h)),
-    as the kernel source decides them."""
-    plan = _entry("flash_attention_bwd", tuple(_BWD_PLAN_ARGTYPES), "flash_attention_bwd_plan")
-    scratch = ctypes.c_longlong(0)
-    kernels = plan(lq, lk, dh, ctypes.byref(scratch))
-    if kernels < 0:
-        raise ValueError(f"flash_attention_bwd takes no head dim {dh}")
-    return kernels, scratch.value
 
 
 def _check_inputs(q, k, v, key_padding_mask, name):
@@ -246,8 +233,8 @@ def flash_attention_bwd(
     """The CUDA flash-attention backward: (dq, dk, dv) in the input dtype.
     q, k, v as for :func:`flash_attention_fwd`; o and do [B, H, Lq, Dh] of q's
     dtype; lse [B, H, Lq] f32 from the forward. All contiguous CUDA
-    tensors. One launch when Lk ≤ 64, else the number the source's plan
-    gives; raises on anything it does not take."""
+    tensors. One launch when Lk ≤ 64, two otherwise; raises on anything it
+    does not take."""
     b, h, lq, lk, dh = _check_inputs(q, k, v, key_padding_mask, "flash_attention_bwd")
     for name, t, shape, dtype in (("o", o, q.shape, q.dtype), ("do", do, q.shape, q.dtype),
                                   ("lse", lse, (b, h, lq), torch.float32)):
@@ -260,21 +247,20 @@ def flash_attention_bwd(
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     if dq.numel() == 0 and dk.numel() == 0:
         return dq, dk, dv
-    kernels, scratch_per_bh = _bwd_plan(lq, lk, dh)
-    scratch = (torch.empty(b * h * scratch_per_bh, dtype=torch.float32, device=q.device)
-               if scratch_per_bh else None)
+    # D = rowsum(dO ⊙ o) when the key axis is more than one tile
+    scratch = torch.empty(b, h, lq, dtype=torch.float32, device=q.device)
     fn = _entry("flash_attention_bwd", tuple(_BWD_ARGTYPES))
     with torch.cuda.device(q.device):
-        err = fn(
+        launched = fn(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
             lse.data_ptr(), _ptr(key_padding_mask), dq.data_ptr(), dk.data_ptr(),
-            dv.data_ptr(), _ptr(scratch), b, h, lq, lk, dh, int(causal),
+            dv.data_ptr(), scratch.data_ptr(), b, h, lq, lk, dh, int(causal),
             int(q.dtype == torch.bfloat16),
             torch.cuda.current_stream(q.device).cuda_stream,
         )
-    if err != 0:
-        raise RuntimeError(f"flash_attention_bwd launch failed: cudaError_t {err}")
-    flash_attention_bwd.launches += kernels
+    if launched < 0:
+        raise RuntimeError(f"flash_attention_bwd launch failed: cudaError_t {-launched}")
+    flash_attention_bwd.launches += launched
     return dq, dk, dv
 
 

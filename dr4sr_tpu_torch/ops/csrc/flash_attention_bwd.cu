@@ -766,25 +766,21 @@ cudaError_t allow_smem(Kernel kernel, size_t smem) {
                               static_cast<int>(smem));
 }
 
-// kernels a call launches, and f32 scratch floats (D) it needs per (b, h)
-int kernels_per_call(int lq, int lk, long long* scratch) {
-  *scratch = 0;
-  if (lq == 0 || lk == 0) return 0;
-  if (lk <= kBlockK) return 1;
-  *scratch = lq;
-  return 2;
-}
-
 template <typename T, int DH>
 cudaError_t launch(const void* q_, const void* k_, const void* v_, const void* o_,
                    const void* dout_, const float* lse, const void* pad_, void* dq_, void* dk_,
                    void* dv_, float* scratch, int batch, int heads, int lq, int lk, int causal,
-                   float scale, cudaStream_t stream) {
+                   float scale, cudaStream_t stream, int* launched) {
   using C = Cfg<T, DH>;
   const long long bh = static_cast<long long>(batch) * heads;
-  if (bh == 0 || lq == 0) return cudaSuccess;
-  if (lk == 0) {  // no keys: every row is fully masked
-    return cudaMemsetAsync(dq_, 0, static_cast<size_t>(bh) * lq * DH * sizeof(T), stream);
+  if (bh == 0) return cudaSuccess;
+  if (lq == 0 || lk == 0) {  // no rows, or no keys (every row fully masked): zeros
+    const size_t q_bytes = static_cast<size_t>(bh) * lq * DH * sizeof(T);
+    const size_t k_bytes = static_cast<size_t>(bh) * lk * DH * sizeof(T);
+    cudaError_t err = cudaMemsetAsync(dq_, 0, q_bytes, stream);
+    if (err == cudaSuccess) err = cudaMemsetAsync(dk_, 0, k_bytes, stream);
+    if (err == cudaSuccess) err = cudaMemsetAsync(dv_, 0, k_bytes, stream);
+    return err;
   }
   const T* q = static_cast<const T*>(q_);
   const T* k = static_cast<const T*>(k_);
@@ -808,21 +804,25 @@ cudaError_t launch(const void* q_, const void* k_, const void* v_, const void* o
     kernel<<<static_cast<unsigned>(blocks), kThreads, smem, stream>>>(
         q, k, v, o, dout, lse, nullptr, pad, dq, dk, dv, heads, lq, lk, num_k_tiles, causal,
         scale);
+    ++*launched;
     return cudaGetLastError();
   }
 
   float* drow = scratch;  // [B,H,Lq]
+  if (drow == nullptr) return cudaErrorInvalidValue;
   if constexpr (!C::kBf16) {
     const long long rows = bh * lq;
     const long long prep_blocks = (rows * 4 + kThreads - 1) / kThreads;
     if (prep_blocks > INT_MAX) return cudaErrorInvalidConfiguration;
     auto prep = flash_bwd_prep_kernel<DH>;
     prep<<<static_cast<unsigned>(prep_blocks), kThreads, 0, stream>>>(o, dout, drow, dq, rows);
+    ++*launched;
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
     auto kernel = flash_bwd_kernel<T, DH, kDqAtomic>;
     if ((err = allow_smem(kernel, smem)) != cudaSuccess) return err;
     kernel<<<static_cast<unsigned>(blocks), kThreads, smem, stream>>>(
         q, k, v, o, dout, lse, drow, pad, dq, dk, dv, heads, lq, lk, num_k_tiles, causal, scale);
+    ++*launched;
     return cudaGetLastError();
   } else {
     constexpr int kDqBQ = 16 * kWarps, kDqBK = 32;
@@ -836,12 +836,14 @@ cudaError_t launch(const void* q_, const void* k_, const void* v_, const void* o
     if ((err = allow_smem(dq_kernel, dq_smem)) != cudaSuccess) return err;
     dq_kernel<<<static_cast<unsigned>(dq_blocks), kThreads, dq_smem, stream>>>(
         q, k, v, o, dout, lse, pad, dq, drow, heads, lq, lk, dq_tiles, causal, scale);
+    ++*launched;
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
     auto kernel = flash_bwd_kernel<T, DH, kDqSeparate>;
     if ((err = allow_smem(kernel, smem)) != cudaSuccess) return err;
     kernel<<<static_cast<unsigned>(blocks), kThreads, smem, stream>>>(
         q, k, v, o, dout, lse, drow, pad, nullptr, dk, dv, heads, lq, lk, num_k_tiles, causal,
         scale);
+    ++*launched;
     return cudaGetLastError();
   }
 }
@@ -850,20 +852,21 @@ template <typename T>
 cudaError_t dispatch_dim(int head_dim, const void* q, const void* k, const void* v,
                          const void* o, const void* dout, const float* lse, const void* pad,
                          void* dq, void* dk, void* dv, float* scratch, int batch, int heads,
-                         int lq, int lk, int causal, float scale, cudaStream_t stream) {
+                         int lq, int lk, int causal, float scale, cudaStream_t stream,
+                         int* launched) {
   switch (head_dim) {
     case 16:
       return launch<T, 16>(q, k, v, o, dout, lse, pad, dq, dk, dv, scratch, batch, heads, lq, lk,
-                           causal, scale, stream);
+                           causal, scale, stream, launched);
     case 32:
       return launch<T, 32>(q, k, v, o, dout, lse, pad, dq, dk, dv, scratch, batch, heads, lq, lk,
-                           causal, scale, stream);
+                           causal, scale, stream, launched);
     case 64:
       return launch<T, 64>(q, k, v, o, dout, lse, pad, dq, dk, dv, scratch, batch, heads, lq, lk,
-                           causal, scale, stream);
+                           causal, scale, stream, launched);
     case 128:
       return launch<T, 128>(q, k, v, o, dout, lse, pad, dq, dk, dv, scratch, batch, heads, lq,
-                            lk, causal, scale, stream);
+                            lk, causal, scale, stream, launched);
     default:
       return cudaErrorInvalidValue;
   }
@@ -875,10 +878,10 @@ cudaError_t dispatch_dim(int head_dim, const void* q, const void* k, const void*
 // q/o/dout/dq [B,H,Lq,Dh], k/v/dk/dv [B,H,Lk,Dh], all contiguous and 16-byte
 // aligned, f32 (is_bf16 = 0) or bf16 (is_bf16 = 1); lse [B,H,Lq] f32 from
 // the forward; key_padding_mask [B,Lk] bytes (nonzero = pad) or null;
-// scratch f32 of B·H times the floats dr4sr_flash_attention_bwd_plan
-// names (null when that is 0). Launches the kernels that the plan counts on
-// `stream`, does not synchronise, and returns the first launch error
-// (cudaError_t), or 0.
+// scratch [B,H,Lq] f32, which holds D when Lk > 64 (untouched, and may be
+// null, otherwise). Launches the kernels on `stream` without synchronising
+// and returns how many kernels of this library it launched (0 when there is
+// nothing to compute), or minus the first launch error (cudaError_t).
 extern "C" int dr4sr_flash_attention_bwd(const void* q, const void* k, const void* v,
                                          const void* o, const void* dout, const void* lse,
                                          const void* key_padding_mask, void* dq, void* dk,
@@ -890,21 +893,13 @@ extern "C" int dr4sr_flash_attention_bwd(const void* q, const void* k, const voi
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* lse_f = static_cast<const float*>(lse);
   float* scratch_f = static_cast<float*>(scratch);
-  if (is_bf16) {
-    return dispatch_dim<__nv_bfloat16>(head_dim, q, k, v, o, dout, lse_f, key_padding_mask, dq,
-                                       dk, dv, scratch_f, batch, heads, lq, lk, causal, scale, s);
-  }
-  return dispatch_dim<float>(head_dim, q, k, v, o, dout, lse_f, key_padding_mask, dq, dk, dv,
-                             scratch_f, batch, heads, lq, lk, causal, scale, s);
-}
-
-// for these sizes, in either dtype: the number of kernels of this library
-// that one call of dr4sr_flash_attention_bwd launches (-1: a head_dim it
-// does not take), and in *scratch the f32 scratch floats it needs per
-// (batch, head)
-extern "C" int dr4sr_flash_attention_bwd_plan(int lq, int lk, int head_dim,
-                                              long long* scratch) {
-  *scratch = 0;
-  if (head_dim != 16 && head_dim != 32 && head_dim != 64 && head_dim != 128) return -1;
-  return kernels_per_call(lq, lk, scratch);
+  int launched = 0;
+  const cudaError_t err =
+      is_bf16 ? dispatch_dim<__nv_bfloat16>(head_dim, q, k, v, o, dout, lse_f, key_padding_mask,
+                                             dq, dk, dv, scratch_f, batch, heads, lq, lk, causal,
+                                             scale, s, &launched)
+              : dispatch_dim<float>(head_dim, q, k, v, o, dout, lse_f, key_padding_mask, dq, dk,
+                                    dv, scratch_f, batch, heads, lq, lk, causal, scale, s,
+                                    &launched);
+  return err == cudaSuccess ? launched : -static_cast<int>(err);
 }

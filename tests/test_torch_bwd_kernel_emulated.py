@@ -35,34 +35,35 @@ VS_PALLAS = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 
 @pytest.fixture(scope="module")
 def emulated_bwd(tmp_path_factory):
-    """(entry point, plan) of the kernel library built from the package's source."""
+    """The entry point of the kernel library built from the package's source."""
     lib = emulated_library(_build.source_path("flash_attention_bwd"),
                            tmp_path_factory.mktemp("emulated_bwd"))
     fn = lib.dr4sr_flash_attention_bwd
     fn.argtypes = list(attention._BWD_ARGTYPES)
     fn.restype = ctypes.c_int
-    plan = lib.dr4sr_flash_attention_bwd_plan
-    plan.argtypes = list(attention._BWD_PLAN_ARGTYPES)
-    plan.restype = ctypes.c_int
-    return fn, plan
+    return fn
 
 
-def _run(lib, q, k, v, o, do, lse, pad, causal):
-    """(dq, dk, dv) from the emulated kernels, and the number they launched."""
-    fn, plan = lib
+def _call(fn, q, k, v, o, do, lse, pad, causal):
+    """(dq, dk, dv) from the emulated kernels, and what the entry point
+    returned: the kernels it launched, or minus an error."""
     b, h, lq, dh = q.shape
     lk = k.shape[2]
-    per_bh = ctypes.c_longlong(0)
-    kernels = plan(lq, lk, dh, ctypes.byref(per_bh))
     # every output element must be written, and no scratch read before it is
-    scratch = torch.full((b * h * per_bh.value,), float("nan")) if per_bh.value else None
+    scratch = torch.full((b, h, lq), float("nan"))
     dq, dk, dv = (torch.full_like(x, float("nan")) for x in (q, k, v))
-    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
+    ret = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
              lse.data_ptr(), None if pad is None else pad.data_ptr(), dq.data_ptr(),
-             dk.data_ptr(), dv.data_ptr(), None if scratch is None else scratch.data_ptr(),
-             b, h, lq, lk, dh, int(causal), int(q.dtype == torch.bfloat16), None)
-    assert err == 0
-    return (dq, dk, dv), kernels
+             dk.data_ptr(), dv.data_ptr(), scratch.data_ptr(), b, h, lq, lk, dh, int(causal),
+             int(q.dtype == torch.bfloat16), None)
+    return (dq, dk, dv), ret
+
+
+def _run(fn, q, k, v, o, do, lse, pad, causal):
+    """(dq, dk, dv) from the emulated kernels, and the number they launched."""
+    grads, kernels = _call(fn, q, k, v, o, do, lse, pad, causal)
+    assert kernels >= 0, f"cudaError_t {-kernels}"
+    return grads, kernels
 
 
 # (dtype, B, H, Lq, Lk, Dh, causal): the train shape cut in batch (one key
@@ -117,17 +118,31 @@ def test_emulated_kernel_matches_the_plain_version(emulated_bwd, case):
 
 
 def test_one_key_tile_is_one_launch(emulated_bwd):
-    """The train path's L = 50 (and any Lk ≤ 64) is one kernel without
-    scratch; a longer key axis two, with D ([Lq] floats per (b, h)) in
-    scratch; no keys, none."""
-    _, plan = emulated_bwd
-    per_bh = ctypes.c_longlong(-1)
-    for dh in attention.HEAD_DIMS:
-        assert plan(50, 50, dh, ctypes.byref(per_bh)) == 1 and per_bh.value == 0
-        assert plan(200, 64, dh, ctypes.byref(per_bh)) == 1 and per_bh.value == 0
-        assert plan(50, 65, dh, ctypes.byref(per_bh)) == 2 and per_bh.value == 50
-        assert plan(50, 0, dh, ctypes.byref(per_bh)) == 0
-    assert plan(50, 50, 48, ctypes.byref(per_bh)) == -1
+    """The entry point returns the kernels it launched: one when the key axis
+    fits one 64-key tile (the train path's L = 50, also under a longer query
+    axis), two for a longer key axis, none without rows or keys (zeros); a
+    head dim it does not take is an error. The scratch is read only in the
+    two-kernel route, so a NaN there fails the one-kernel cases."""
+    for dtype in (torch.float32, torch.bfloat16):
+        for lq, lk, dh, want in ((50, 50, 16, 1), (50, 50, 128, 1), (80, 64, 32, 1),
+                                 (20, 65, 32, 2)):
+            case = (dtype, 1, 1, lq, lk, dh, True)
+            q, k, v, do, pad = _inputs(case, lq + lk)
+            o = mha_reference(q, k, v, pad, True)
+            lse = _lse_reference(q.float(), k.float(), pad, True)
+            got, kernels = _run(emulated_bwd, q, k, v, o, do, lse, pad, True)
+            assert kernels == want
+            want_grads = flash_attention_bwd_reference(q, k, v, o, do, pad, True)
+            for g, w in zip(got, want_grads):
+                assert (g.float() - w.float()).abs().max().item() <= ATOL[dtype]
+        for lq, lk in ((50, 0), (0, 50)):
+            q, k, v, o, do = (torch.ones(1, 1, n, 32, dtype=dtype) for n in (lq, lk, lk, lq, lq))
+            lse = torch.full((1, 1, lq), float("inf"))
+            got, kernels = _run(emulated_bwd, q, k, v, o, do, lse, None, True)
+            assert kernels == 0 and all((g == 0).all() for g in got)
+    q = torch.ones(1, 1, 50, 48)
+    _, ret = _call(emulated_bwd, q, q, q, q, q, torch.zeros(1, 1, 50), None, True)
+    assert ret < 0
 
 
 @pytest.mark.parametrize("case", CASES, ids=_case_id)

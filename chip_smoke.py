@@ -29,7 +29,17 @@ Phases, in order; any failure raises and the script exits nonzero:
    launch counts, a falling loss, validation recall@20 above 5x random; the
    first step's gradients and 3 Adam steps' losses against the CPU route
    from the same weights and negatives; a few bf16 steps; timed steps; and
-   a profile of a few steps.
+   a profile of a few steps;
+6. regen: the regeneration pipeline at the amazon-toys width on the same
+   synthetic data: stage 1 mines patterns (α 5, β 2) and pairs, with the
+   JAX package's counts; stage 2 ``pretrain_regenerator(device="cuda")``
+   for 60 steps of 256 pairs (a falling CE, 8 forward and 8 backward
+   attention launches a step), card-vs-CPU gradients and 3 Adam steps from
+   the committed trained regenerator; stage 3 ``hybrid_inference`` of every
+   training sequence under K = 5 conditions from that regenerator (2
+   forward launches a batch, none backward), its tokens against the CPU
+   route's and beam width 1 against greedy (equal but for near ties), one
+   bf16 batch; stage 4 one epoch of SASRec on the assembled ``train_regen``.
 
 It prints one ``{"kernels": [...]}`` line, then as its last line
 ``{"ok": true, "device": {...}}``. It imports nothing of JAX. Kernel times
@@ -37,9 +47,9 @@ are device time per call (:func:`device_ms`).
 
     python3 chip_smoke.py --controls
 
-runs only the card-vs-CPU gradient check of phase 5, once with each of a few
-deliberate faults patched into the backward route, and prints whether the
-check caught each (a ``control {...}`` line per fault).
+runs only the card-vs-CPU gradient checks of phases 5 and 6, once with each
+of a few deliberate faults patched into the backward route, and prints
+whether the check caught each (a ``control {...}`` line per path and fault).
 """
 
 from __future__ import annotations
@@ -57,6 +67,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from dr4sr_tpu_torch.convert import generator_params_from_jax
 from dr4sr_tpu_torch.data.dataset import prepare_datasets
 from dr4sr_tpu_torch.data.synthetic import markov_sequences, write_synthetic_dataset
 from dr4sr_tpu_torch.models.base import RecModel
@@ -69,7 +80,25 @@ from dr4sr_tpu_torch.ops.attention import (
     flash_attention_fwd,
     mha_reference,
 )
+from dr4sr_tpu_torch.regen.decode import (
+    beam_decode_batch_cached,
+    decode_dataset,
+    frame_sources,
+    greedy_decode_batch_cached,
+)
+from dr4sr_tpu_torch.regen.generator import NEG, Generator, frame_pairs, gumbel_noise
+from dr4sr_tpu_torch.regen.miner import match_pairs, mine_patterns
+from dr4sr_tpu_torch.regen.pipeline import (
+    assemble_train_regen,
+    hybrid_inference,
+    pattern_rows,
+    pretrain_regenerator,
+    pretrain_step,
+    regen_optimizer,
+    train_sequences_from_rows,
+)
 from dr4sr_tpu_torch.serve import Recommender
+from dr4sr_tpu_torch.train.checkpoint import load_jax_checkpoint, load_regenerator
 from dr4sr_tpu_torch.train.trainer import Trainer
 
 # H100 SXM published peaks (NVIDIA data sheet): HBM3 bytes/s, and dense
@@ -126,9 +155,47 @@ ATTENTION_CASES = [
     ("cross_f32", 64, 2, 20, 50, 32, False, torch.float32),
     ("dh16_bf16", 16, 2, 100, 100, 16, True, torch.bfloat16),
     ("dh128_f32", 16, 2, 130, 130, 128, True, torch.float32),
+    # the regenerator's pretrain step: its encoder over 52-token sources,
+    # the condition encoder and decoder self-attention over 26-token
+    # targets, the decoder's cross-attention from targets to sources
+    ("regen_src_f32", 256, 2, 52, 52, 32, True, torch.float32),
+    ("regen_tgt_f32", 256, 2, 26, 26, 32, True, torch.float32),
+    ("regen_cross_f32", 256, 2, 26, 52, 32, False, torch.float32),
 ]
-# forward only: the eval batch of the train path (evaluation takes no gradient)
-FWD_ONLY_CASES = [("eval_f32", 2048, 2, 50, 50, 32, True, torch.float32)]
+# forward only: the eval batch of the train path and the regenerator's
+# encoder at decode (non-causal); neither takes a gradient
+FWD_ONLY_CASES = [("eval_f32", 2048, 2, 50, 50, 32, True, torch.float32),
+                  ("regen_decode_f32", 1024, 2, 52, 52, 32, False, torch.float32)]
+
+# the regenerator as scripts/pretrain_regenerator.py trains it and the
+# committed artifact holds it (trained on amazon-toys: K = 5, D = 64, 2
+# heads, 2 encoder and 2 decoder layers, FFN 256, 11,925 items)
+ARTIFACT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "artifacts",
+                        "regenerator_toys_a5b2K5ew1p0.msgpack")
+REGEN_K = 5
+# stage 1 with α = 5, β = 2 on the 19,412 Markov sequences: the JAX
+# package's miner (dr4sr_tpu.regen.miner, CPU) finds these many patterns,
+# and (sequence, pattern) pairs at 10 matches a sequence, seed 2024
+JAX_MINER_COUNTS = (179381, 192497)
+PRETRAIN_STEPS = 60  # one epoch over the first 60 batches of 256 pairs
+# attention calls of a pretrain step: encoder 2, condition encoder 2, decoder
+# self 2 and cross 2; each backward is one kernel (every Lk <= 64)
+PRETRAIN_ATTENTION = 8
+DECODE_BATCH = 1024
+DECODE_MAX_LEN = 25
+DECODE_CHECKED = 1024  # sequences decoded on both routes under every condition
+# tokens of two routes may differ in a lane only where the first differing
+# step had its two best allowed logits within NEAR_TIE, and in at most
+# NEAR_TIE_SHARE of the lanes
+NEAR_TIE = 1e-4
+NEAR_TIE_SHARE = 0.01
+# the regenerator's card-vs-CPU check runs at gumbel temperature 3, not the
+# pipeline's starting 1: the artifact's condition logits lie far apart, so
+# at τ = 1 its condition probabilities are 1.0000 and the condition layer's
+# gradients are residues of cancellation, which f32 alone gets 7.1e-4 (of
+# their largest) wrong on the CPU route against float64; at τ = 3 (largest
+# probability about 0.99) no parameter's f32 error there exceeds 2.5e-6
+REGEN_PARITY_TAU = 3.0
 
 
 def log(msg: str) -> None:
@@ -143,19 +210,23 @@ def device_ms(fn, calls: int = 50) -> float:
     that ``calls`` calls launch, as ``torch.profiler`` reads it, summed and
     divided by ``calls``, after one warm-up call. The host's enqueue time and
     the gaps between launches are not in it (a CUDA-event window over a few
-    calls at small shapes measures them instead)."""
+    calls at small shapes measures them instead). Now and then a profiling
+    session records no device activity at all (once in about 200 sessions
+    over three runs); that session is taken again, up to three times."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in _device_rows(prof.key_averages()))
-    if not us > 0:
-        raise AssertionError("the profiler saw no device time")
-    return us / calls / 1e3
+    for attempt in range(1, 4):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(e.self_device_time_total for e in _device_rows(prof.key_averages()))
+        if us > 0:
+            return us / calls / 1e3
+        log(f"device_ms: the profiler saw no device time (session {attempt} of 3)")
+    raise AssertionError("the profiler saw no device time in 3 sessions")
 
 
 def _unmasked_pairs(pad, lq, lk, causal):
@@ -376,22 +447,23 @@ def serve(requests, card):
               "attention_launches": launches, "attention_bwd_launches": bwd_launches,
               "card": card}
     log(f"serve {json.dumps(result)}")
-    profile_serve(gpu, requests)
+    profiled(f"one serving pass, {batches} batches",
+             lambda: [gpu.recommend(r, k=TOPK) for r in requests])
     return launches, bwd_launches
 
 
-def profile_serve(gpu, requests):
-    """One pass under ``torch.profiler``: device time by kernel, host time by
-    op, and the device's busy share of the wall time."""
+def profiled(label, fn):
+    """``fn()`` under ``torch.profiler``: device time by kernel, host time by
+    op, and the device's busy share of the wall time (:func:`_log_profile`)."""
     from torch.profiler import ProfilerActivity, profile
 
+    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for r in requests:
-            gpu.recommend(r, k=TOPK)
+        fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    log(f"profile: one serving pass, {sum(-(-len(r) // BATCH) for r in requests)} batches")
+    log(f"profile: {label}")
     _log_profile(prof, wall_us)
 
 
@@ -428,7 +500,7 @@ def _train_cfg(workdir, **train):
 
 
 def card_vs_cpu(datasets, workdir):
-    """From the same initial weights, with dropout 0 and the same fed
+    """SASRec from the same initial weights, with dropout 0 and the same fed
     negatives: the first step's gradients and 3 Adam steps' losses, card
     against CPU. Returns the errors; :func:`check_card_vs_cpu` judges them."""
     cfg = _train_cfg(workdir)
@@ -454,6 +526,13 @@ def card_vs_cpu(datasets, workdir):
             trainer.optimizer.step()
             losses.append(loss.item())
         runs[device] = (losses, grads)
+    return _parity(runs)
+
+
+def _parity(runs):
+    """{device: (losses, first-step grads by parameter)} -> the errors of
+    the card against the CPU, each parameter's relative to its largest
+    gradient."""
     abs_err = {k: (runs["cuda"][1][k] - g).abs().max().item() for k, g in runs["cpu"][1].items()}
     rel_err = {k: abs_err[k] / max(g.abs().max().item(), 1e-30)
                for k, g in runs["cpu"][1].items()}
@@ -566,24 +645,262 @@ def _train(card, workdir):
         "card_vs_cpu": parity, "bf16_losses": bf16, "card": card,
     }
     log(f"train {json.dumps(result)}")
-    profile_train(trainer)
+    batches = [b for b, _ in zip(trainer.train_data.get_loader(seed=0), range(10))]
+    profiled("10 train steps",
+             lambda: [trainer.train_step(trainer.device_batch(b)) for b in batches])
     return fwd_launches, bwd_launches
 
 
-def profile_train(trainer, steps=10):
-    """``steps`` train steps under ``torch.profiler``."""
-    from torch.profiler import ProfilerActivity, profile
+def mine(sequences):
+    """Stage 1 on the raw sequences: (patterns, pairs, seconds mining,
+    seconds matching), checked against the JAX package's counts."""
+    t0 = time.perf_counter()
+    patterns, _ = mine_patterns(sequences, max_span=5, min_frequency=2)
+    mine_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    matches = match_pairs(sequences, patterns, max_matches=10, seed=2024)
+    pairs = [(seq, patterns[p]) for seq, idxs in zip(sequences, matches) for p in idxs]
+    match_s = time.perf_counter() - t0
+    if (len(patterns), len(pairs)) != JAX_MINER_COUNTS:
+        raise AssertionError(f"mined {len(patterns)} patterns and {len(pairs)} pairs; the JAX "
+                             f"package's miner finds {JAX_MINER_COUNTS}")
+    return patterns, pairs, mine_s, match_s
 
-    batches = [b for b, _ in zip(trainer.train_data.get_loader(seed=0), range(steps))]
+
+def regen_card_vs_cpu(pairs):
+    """The regenerator from the committed artifact's weights, dropout 0, the
+    same gumbel draws, τ from REGEN_PARITY_TAU: the first step's gradients
+    and 3 Adam steps' losses (``pipeline.pretrain_step``), card against CPU."""
+    params = load_jax_checkpoint(ARTIFACT)["params"]
+    data = frame_pairs(pairs[: 3 * BATCH], NUM_ITEMS)
+    noise = gumbel_noise((3, BATCH, REGEN_K), torch.Generator().manual_seed(0), "cpu")
+    runs = {}
+    for device in ("cuda", "cpu"):
+        module = Generator(NUM_ITEMS, k=REGEN_K, dropout=0.0)
+        module.load_state_dict(generator_params_from_jax(params, module))
+        module.to(device)
+        optimizer, scheduler = regen_optimizer(module, 1e-3, 3)
+        losses, grads = [], None
+        for step in range(3):
+            rows = slice(step * BATCH, (step + 1) * BATCH)
+            batch = [torch.from_numpy(data[k][rows]).long().to(device)
+                     for k in ("src", "tgt", "tgt_len")]
+            out = pretrain_step(module, optimizer, scheduler, *batch, REGEN_PARITY_TAU,
+                                gumbel=noise[step].to(device))
+            if grads is None:  # this step's gradients stay until the next step
+                grads = {k: p.grad.detach().cpu() for k, p in module.named_parameters()}
+            losses.append(out["loss"].item())
+        runs[device] = (losses, grads)
+    return _parity(runs)
+
+
+def decode_margins(module, src, condition, buf):
+    """Fed back the tokens ``buf`` [B, T] that ``module`` chose, the gap
+    between its two largest allowed (restrictive) logits at every step:
+    [B, T - 1]. Where two routes first differ in a lane, this gap says
+    whether the step was a near tie."""
+    b, t = buf.shape
+    mem_k, mem_v = module.decode_state(src, condition)
+    allowed = torch.zeros(b, module.num_items + 2, dtype=torch.bool, device=src.device)
+    allowed.scatter_(1, src, True)
+    allowed[:, [0, module.sos]] = False  # PAD never; SOS already emitted
+    shape = (module.num_layers, b, t, module.embed_dim)
+    cache_k = torch.zeros(shape, device=src.device)
+    cache_v = torch.zeros(shape, device=src.device)
+    lanes = torch.arange(b, device=src.device)
+    gaps = []
+    with torch.no_grad():
+        for i in range(t - 1):
+            logits = module.cached_decode_step(buf[:, i], i, cache_k, cache_v, mem_k, mem_v,
+                                               src != 0)
+            top = torch.where(allowed, logits, NEG).topk(2, dim=-1).values
+            gaps.append(top[:, 0] - top[:, 1])
+            allowed[lanes, buf[:, i + 1]] = False
+    return torch.stack(gaps, 1).cpu()
+
+
+def differing_lanes(got, want, gaps):
+    """(lanes whose tokens differ, those whose first difference is not at a
+    near tie of ``want``'s route)."""
+    diff = (got.cpu() != want.cpu())[:, 1:]
+    lanes = diff.any(1)
+    at = gaps[torch.arange(len(lanes)), diff.float().argmax(1)]
+    return int(lanes.sum()), int((lanes & (at >= NEAR_TIE)).sum())
+
+
+def check_decodes(card_gen, sequences):
+    """The first DECODE_CHECKED sequences under every condition: the card's
+    cached greedy tokens against the CPU route's, and the card's beam search
+    of width 1 against its greedy; then one bf16 batch against f32."""
+    cpu_gen = load_regenerator(ARTIFACT, device="cpu")
+    src = torch.from_numpy(frame_sources(sequences[:DECODE_CHECKED], cpu_gen)).long()
+    counts = {"card_vs_cpu": [0, 0], "beam1_vs_greedy": [0, 0]}
+    for cond in range(REGEN_K):
+        c = torch.full((len(src),), cond, dtype=torch.long)
+        card = greedy_decode_batch_cached(card_gen, src.cuda(), c.cuda(), DECODE_MAX_LEN)
+        cpu = greedy_decode_batch_cached(cpu_gen, src, c, DECODE_MAX_LEN)
+        beam = beam_decode_batch_cached(card_gen, src.cuda(), c.cuda(), DECODE_MAX_LEN,
+                                        beam_width=1)
+        for key, got, want, gaps in (
+                ("card_vs_cpu", card, cpu, decode_margins(cpu_gen, src, c, cpu)),
+                ("beam1_vs_greedy", beam, card,
+                 decode_margins(card_gen, src.cuda(), c.cuda(), card))):
+            n, apart = differing_lanes(got, want, gaps)
+            counts[key][0] += n
+            counts[key][1] += apart
+    lanes = REGEN_K * len(src)
+    result = {key: {"lanes": lanes, "differing": n, "differing_not_near_tie": apart,
+                    "near_tie": NEAR_TIE} for key, (n, apart) in counts.items()}
+    for key, (n, apart) in counts.items():
+        if apart or n > NEAR_TIE_SHARE * lanes:
+            raise AssertionError(f"decode {key}: {n} of {lanes} lanes differ, {apart} of them "
+                                 f"not at a near tie ({NEAR_TIE})")
+
+    seqs = sequences[:DECODE_BATCH]
+    f32 = decode_dataset(card_gen, seqs, 1, batch_size=DECODE_BATCH, max_len=DECODE_MAX_LEN)
+    bf16 = decode_dataset(card_gen, seqs, 1, batch_size=DECODE_BATCH, max_len=DECODE_MAX_LEN,
+                          precision="bf16")
+    for seq, out in zip(seqs, bf16):
+        if not (set(out) <= set(seq) and len(out) == len(set(out))):
+            raise AssertionError(f"bf16 decode broke the restrictive mask: {out} from {seq}")
+    result["bf16_vs_f32"] = {"lanes": len(seqs),
+                             "equal": sum(a == b for a, b in zip(f32, bf16))}
+    return result
+
+
+def regen(card):
+    """Phase 6: the regeneration pipeline, on a dataset written to a
+    temporary directory that is removed afterwards. The ``regen`` line holds
+    what the stages read, also when one of them fails."""
+    result = {"card": card}
+    try:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_regen_") as workdir:
+            return _regen(workdir, result)
+    finally:
+        log(f"regen {json.dumps(result)}")
+
+
+def _regen(workdir, result):
+    datasets = _datasets(workdir)
+    train_rows = datasets[0].rows()
+    sequences = markov_sequences(num_users=NUM_USERS, num_items=NUM_ITEMS, seed=0)  # the dataset's
+
+    # stage 1: mine
+    patterns, pairs, result["mine_s"], result["match_s"] = mine(sequences)
+    result.update(patterns=len(patterns), pairs=len(pairs))
+
+    # stage 2: pretrain a fresh regenerator, counted
+    flash_attention_fwd.launches = 0
+    flash_attention_bwd.launches = 0
+    t0 = time.perf_counter()
+    module, history = pretrain_regenerator(pairs[: PRETRAIN_STEPS * BATCH], NUM_ITEMS, k=REGEN_K,
+                                           epochs=1, batch_size=BATCH, device="cuda")
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    pretrain_s = time.perf_counter() - t0
+    pre_fwd, pre_bwd = flash_attention_fwd.launches, flash_attention_bwd.launches
+    want = PRETRAIN_ATTENTION * PRETRAIN_STEPS
+    if (pre_fwd, pre_bwd) != (want, want):
+        raise AssertionError(f"pretrain launches: forward {pre_fwd}, backward {pre_bwd} "
+                             f"(want {want} each)")
+    ce = history["ce"]
+    if not (np.isfinite(ce).all() and np.mean(ce[-10:]) < np.mean(ce[:10])):
+        raise AssertionError(f"the pretrain CE did not fall: {ce}")
+    # timed steps (uncounted), each from host batch to done
+    data = frame_pairs(pairs[: 31 * BATCH], NUM_ITEMS)
+    optimizer, scheduler = regen_optimizer(module, 1e-3, 31)
+    lat_ms = []
+    for step in range(31):
+        rows = slice(step * BATCH, (step + 1) * BATCH)
         t0 = time.perf_counter()
-        for batch in batches:
-            trainer.train_step(trainer.device_batch(batch))
+        pretrain_step(module, optimizer, scheduler,
+                      *(torch.from_numpy(data[k][rows]).long().cuda()
+                        for k in ("src", "tgt", "tgt_len")), 0.5)
         torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    log(f"profile: {steps} train steps")
-    _log_profile(prof, wall_us)
+        if step > 0:  # the first step is the warm-up
+            lat_ms.append((time.perf_counter() - t0) * 1e3)
+    result["pretrain"] = {
+        "steps": PRETRAIN_STEPS, "batch": BATCH, "run_s": pretrain_s,
+        "ce_first10": float(np.mean(ce[:10])), "ce_last10": float(np.mean(ce[-10:])),
+        "step_ms_p50": float(np.percentile(lat_ms, 50)),
+        "step_ms_p90": float(np.percentile(lat_ms, 90)), "timed_steps": len(lat_ms),
+        "steps_per_s": len(lat_ms) / (sum(lat_ms) / 1e3),
+        "pairs_per_s": BATCH * len(lat_ms) / (sum(lat_ms) / 1e3),
+        "attention_fwd_launches": pre_fwd, "attention_bwd_launches": pre_bwd}
+    result["card_vs_cpu"] = regen_card_vs_cpu(pairs)
+    check_card_vs_cpu(result["card_vs_cpu"])
+    optimizer, scheduler = regen_optimizer(module, 1e-3, 5)
+    batches = [[torch.from_numpy(data[k][i * BATCH : (i + 1) * BATCH]).long().cuda()
+                for k in ("src", "tgt", "tgt_len")] for i in range(5)]
+    profiled("5 regenerator pretrain steps",
+             lambda: [pretrain_step(module, optimizer, scheduler, *b, 0.5) for b in batches])
+    del module, optimizer
+
+    # stage 3: decode every training sequence with the trained artifact, counted
+    gen = load_regenerator(ARTIFACT, device="cuda")
+    flash_attention_fwd.launches = 0
+    flash_attention_bwd.launches = 0
+    regen_rows, stats = hybrid_inference(gen, train_rows, k_conditions=REGEN_K,
+                                         batch_size=DECODE_BATCH, max_len=DECODE_MAX_LEN,
+                                         device="cuda")
+    torch.cuda.synchronize()
+    dec_fwd, dec_bwd = flash_attention_fwd.launches, flash_attention_bwd.launches
+    sequences_train = train_sequences_from_rows(train_rows)
+    batches = REGEN_K * -(-len(sequences_train) // DECODE_BATCH)
+    if (dec_fwd, dec_bwd) != (2 * batches, 0):
+        raise AssertionError(f"decode launches: forward {dec_fwd} (want {2 * batches}), "
+                             f"backward {dec_bwd} (want 0)")
+    src = torch.from_numpy(frame_sources(sequences_train[:DECODE_BATCH], gen)).long().cuda()
+    cond = torch.zeros(DECODE_BATCH, dtype=torch.long, device="cuda")
+    lat_ms = []
+    for _ in range(11):
+        t0 = time.perf_counter()
+        greedy_decode_batch_cached(gen, src, cond, DECODE_MAX_LEN)
+        torch.cuda.synchronize()
+        lat_ms.append((time.perf_counter() - t0) * 1e3)
+    lat_ms = lat_ms[1:]  # the first batch is the warm-up
+    result["decode"] = {
+        "lanes": stats["sequences_decoded"], "batches": batches, "batch": DECODE_BATCH,
+        "max_len": DECODE_MAX_LEN, "run_s": stats["seconds"], "lanes_per_s": stats["seqs_per_sec"],
+        "batch_ms_p50": float(np.percentile(lat_ms, 50)),
+        "batch_ms_p90": float(np.percentile(lat_ms, 90)), "timed_batches": len(lat_ms),
+        "unique_regenerated": stats["unique_regenerated"],
+        "attention_fwd_launches": dec_fwd, "attention_bwd_launches": dec_bwd}
+    result["tokens"] = check_decodes(gen, sequences_train)
+    profiled(f"one decode batch of {DECODE_BATCH} lanes",
+             lambda: greedy_decode_batch_cached(gen, src, cond, DECODE_MAX_LEN))
+
+    # stage 4: one epoch of SASRec on the assembled train_regen, counted
+    pat_rows = pattern_rows(patterns)
+    combined = assemble_train_regen(train_rows, pat_rows, regen_rows)
+    combined.save_npz(os.path.join(workdir, "amazon-toys", "toy", "train_regen.npz"))
+    cfg = _train_cfg(workdir, epochs=1)
+    cfg["data"]["train_file"] = "_regen"
+    regen_sets = prepare_datasets(cfg, root=workdir)
+    steps = len(regen_sets[0].get_loader())
+    eval_batches = len(regen_sets[1].get_loader())
+    trainer = Trainer(cfg, regen_sets, workdir=workdir, device="cuda")
+    flash_attention_fwd.launches = 0
+    flash_attention_bwd.launches = 0
+    t0 = time.perf_counter()
+    val = trainer.fit()
+    test = trainer.evaluate()
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    tr_fwd, tr_bwd = flash_attention_fwd.launches, flash_attention_bwd.launches
+    layers = TRAIN_CONFIG["model"]["layer_num"]
+    want_fwd, want_bwd = layers * (steps + 2 * eval_batches), layers * steps
+    if (tr_fwd, tr_bwd) != (want_fwd, want_bwd):
+        raise AssertionError(f"train_regen launches: forward {tr_fwd} (want {want_fwd}), "
+                             f"backward {tr_bwd} (want {want_bwd})")
+    if not (np.isfinite(list(val.values())).all() and np.isfinite(list(test.values())).all()):
+        raise AssertionError(f"train_regen metrics are not finite: {val} {test}")
+    result["train_regen"] = {
+        "rows": len(combined), "original": len(train_rows), "pattern_rows": len(pat_rows),
+        "regenerated": len(regen_rows), "steps": steps, "fit_and_evaluate_s": fit_s,
+        "val": val, "test": test, "attention_fwd_launches": tr_fwd,
+        "attention_bwd_launches": tr_bwd}
+    return ({"regen_pretrain": pre_fwd, "regen_decode": dec_fwd, "regen_train": tr_fwd},
+            {"regen_pretrain": pre_bwd, "regen_decode": dec_bwd, "regen_train": tr_bwd})
 
 
 # deliberate faults in the backward route, each of which the card-vs-CPU
@@ -600,27 +917,33 @@ FAULTS = {
 
 
 def controls() -> int:
-    """``--controls``: the card-vs-CPU check with each of ``FAULTS`` patched
-    into ``FlashAttention.backward``'s call of the backward kernels."""
+    """``--controls``: the card-vs-CPU checks of SASRec and of the
+    regenerator with each of ``FAULTS`` patched into
+    ``FlashAttention.backward``'s call of the backward kernels. On the
+    regenerator's path the key-padding mask matters (left-aligned sources
+    under non-causal cross-attention), so there all three must be caught."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     with tempfile.TemporaryDirectory(prefix="chip_smoke_controls_") as workdir:
         datasets = _datasets(workdir)
-        log(f"control {json.dumps({'fault': None, **card_vs_cpu(datasets, workdir)})}")
-        for name, fault in FAULTS.items():
-            # the wrapper adds to ``attention.flash_attention_bwd.launches``: the fault's
-            attention.flash_attention_bwd = fault(flash_attention_bwd)
-            attention.flash_attention_bwd.launches = 0
-            try:
-                parity = card_vs_cpu(datasets, workdir)
-            finally:
-                attention.flash_attention_bwd = flash_attention_bwd
-            try:
-                check_card_vs_cpu(parity)
-                caught = False
-            except AssertionError:
-                caught = True
-            log(f"control {json.dumps({'fault': name, 'caught': caught, **parity})}")
+        pairs = mine(markov_sequences(num_users=NUM_USERS, num_items=NUM_ITEMS, seed=0))[1]
+        for path, run in (("sasrec", lambda: card_vs_cpu(datasets, workdir)),
+                          ("regen", lambda: regen_card_vs_cpu(pairs))):
+            log(f"control {json.dumps({'path': path, 'fault': None, **run()})}")
+            for name, fault in FAULTS.items():
+                # the wrapper adds to ``attention.flash_attention_bwd.launches``: the fault's
+                attention.flash_attention_bwd = fault(flash_attention_bwd)
+                attention.flash_attention_bwd.launches = 0
+                try:
+                    parity = run()
+                finally:
+                    attention.flash_attention_bwd = flash_attention_bwd
+                try:
+                    check_card_vs_cpu(parity)
+                    caught = False
+                except AssertionError:
+                    caught = True
+                log(f"control {json.dumps({'path': path, 'fault': name, 'caught': caught, **parity})}")
     return 0
 
 
@@ -712,6 +1035,9 @@ def main() -> int:
     # 5. train through the kernels
     train_fwd_launches, train_bwd_launches = train(card)
 
+    # 6. the regeneration pipeline through the kernels
+    regen_fwd_launches, regen_bwd_launches = regen(card)
+
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = [{
         "name": "flash_attention_fwd",
@@ -719,7 +1045,8 @@ def main() -> int:
         "source": "dr4sr_tpu_torch/ops/csrc/flash_attention_fwd.cu",
         "replaces": "dr4sr_tpu/ops/attention.py:66",
         "launches": train_fwd_launches,
-        "launches_by_path": {"serve": serve_launches, "train": train_fwd_launches},
+        "launches_by_path": {"serve": serve_launches, "train": train_fwd_launches,
+                             **regen_fwd_launches},
         **{key: fwd_cases[0][key] for key in keys},
         "sass_hmma": hmma["flash_attention_fwd"],
         "cases": fwd_cases,
@@ -729,7 +1056,8 @@ def main() -> int:
         "source": "dr4sr_tpu_torch/ops/csrc/flash_attention_bwd.cu",
         "replaces": "dr4sr_tpu/ops/attention.py:206",
         "launches": train_bwd_launches,
-        "launches_by_path": {"serve": serve_bwd_launches, "train": train_bwd_launches},
+        "launches_by_path": {"serve": serve_bwd_launches, "train": train_bwd_launches,
+                             **regen_bwd_launches},
         **{key: bwd_cases[0][key] for key in keys},
         "sass_hmma": hmma["flash_attention_bwd"],
         "cases": bwd_cases,

@@ -8,7 +8,9 @@ with ``nvcc`` at first use.
 
 Ported so far: SASRec serving (``serve.Recommender``) and SASRec training
 (``train.trainer.Trainer.fit``, ``python -m dr4sr_tpu_torch.run``), with the
-flash-attention forward and backward kernels.
+flash-attention forward and backward kernels; the regeneration pipeline
+(``regen/``: mining, pretraining the regenerator, hybrid decode,
+``train_regen``; CLIs under ``scripts/``).
 
 Importing the package loads no kernel and builds nothing.
 """

@@ -44,6 +44,21 @@ def sasrec_params_from_jax(params: Mapping[str, Any], module: nn.Module) -> Dict
     transposed, and ``norm1``/``norm2`` scale/bias become LayerNorm
     weight/bias. A sub-tree converts the same way into its sub-module (the
     ``encoder`` params into a ``TransformerEncoder``)."""
+    return _params_from_jax(params, module)
+
+
+def generator_params_from_jax(params: Mapping[str, Any], module: nn.Module) -> Dict[str, torch.Tensor]:
+    """The regenerator's state_dict (``regen.generator.Generator``, or one of
+    its sub-modules: a ``TransformerDecoder``, an ``MLP``) from the JAX
+    params, by the same rules: ``decoder/layer_i/{self_qkv, self_out,
+    cross_q, cross_kv, cross_out, ffn1, ffn2}`` kernels transposed,
+    ``norm1..3`` scale → weight, ``condition_linear/dense_i`` and
+    ``condition_encoder/condition_layer/dense_i`` transposed, embeddings
+    as they are."""
+    return _params_from_jax(params, module)
+
+
+def _params_from_jax(params: Mapping[str, Any], module: nn.Module) -> Dict[str, torch.Tensor]:
     flat = _flatten(params)
     expected = module.state_dict()
     out: Dict[str, torch.Tensor] = {}

@@ -1,6 +1,6 @@
 """Transformer building blocks and pooling, as ``nn.Module``s.
 
-Port of ``dr4sr_tpu/modules/layers.py:31-159``:
+Port of ``dr4sr_tpu/modules/layers.py:31-355`` and ``:525-538``:
 
 * :func:`length_mask`, :func:`seq_pooling` — every pooling type.
 * :class:`TransformerEncoderLayer` — post-norm layer with one fused ``qkv``
@@ -9,6 +9,13 @@ Port of ``dr4sr_tpu/modules/layers.py:31-159``:
   on the card), never ``nn.MultiheadAttention`` or SDPA.
 * :class:`TransformerEncoder` — a stack of them; ``remat`` recomputes each
   layer on the backward pass (``torch.utils.checkpoint``).
+* :class:`TransformerDecoderLayer`, :class:`TransformerDecoder` — the
+  regenerator's post-norm decoder: causal self-attention, cross-attention
+  over the encoder memory (both through ``multihead_attention``), FFN; and
+  the KV-cached path for decoding (``project_memory`` once, then ``step``
+  per position), whose one-query attention :func:`_attend_one` is plain
+  PyTorch, as the JAX package computes it outside Pallas.
+* :class:`MLP` — ``dense_i`` Linear layers with relu between them.
 
 flax's ``nn.gelu`` is the tanh approximation, so ``"gelu"`` here is
 ``F.gelu(approximate="tanh")``.
@@ -16,7 +23,7 @@ flax's ``nn.gelu`` is the tanh approximation, so ``"gelu"`` here is
 
 from __future__ import annotations
 
-from typing import Callable, Optional
+from typing import Callable, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -81,6 +88,26 @@ def seq_pooling(
     raise ValueError(f"unknown pooling_type {pooling_type!r}")
 
 
+def _linear(d_in: int, d_out: int, generator: Optional[torch.Generator]) -> nn.Linear:
+    """A flax ``Dense`` with ``normal_init``: weight normal(0.02), bias 0."""
+    lin = nn.Linear(d_in, d_out)
+    normal_(lin.weight, generator)
+    nn.init.zeros_(lin.bias)
+    return lin
+
+
+def _heads(t: torch.Tensor, h: int) -> torch.Tensor:
+    """[B, L, D] -> [B, H, L, D/H], a fresh contiguous tensor: the kernels
+    take 16-byte aligned inputs, and a ``split`` view sits at an offset."""
+    b, l, d = t.shape
+    return t.reshape(b, l, h, d // h).transpose(1, 2).contiguous()
+
+
+def _merge(t: torch.Tensor) -> torch.Tensor:
+    b, h, l, dh = t.shape
+    return t.transpose(1, 2).reshape(b, l, h * dh)
+
+
 class TransformerEncoderLayer(nn.Module):
     def __init__(
         self,
@@ -112,15 +139,9 @@ class TransformerEncoderLayer(nn.Module):
         key_padding_mask: Optional[torch.Tensor] = None,  # [B, L] True = pad
         causal: bool = True,
     ) -> torch.Tensor:
-        b, l, d = x.shape
-        h = self.num_heads
-        q, k, v = (
-            t.reshape(b, l, h, d // h).transpose(1, 2).contiguous()
-            for t in self.qkv(x).split(d, dim=-1)
-        )
+        q, k, v = (_heads(t, self.num_heads) for t in self.qkv(x).split(x.shape[-1], dim=-1))
         attn = multihead_attention(q, k, v, key_padding_mask, causal)
-        attn = self.dropout(self.out_proj(attn.transpose(1, 2).reshape(b, l, d)))
-        x = self.norm1(x + attn)
+        x = self.norm1(x + self.dropout(self.out_proj(_merge(attn))))
         y = self.dropout(self.act(self.ffn1(x)))
         y = self.dropout(self.ffn2(y))
         return self.norm2(x + y)
@@ -154,4 +175,171 @@ class TransformerEncoder(nn.Module):
                 x = checkpoint(layer, x, key_padding_mask, causal, use_reentrant=False)
             else:
                 x = layer(x, key_padding_mask, causal)
+        return x
+
+
+def _attend_one(
+    q: torch.Tensor,  # [B, D] single query position
+    k: torch.Tensor,  # [B, L, D]
+    v: torch.Tensor,  # [B, L, D]
+    valid: torch.Tensor,  # [B, L] bool, True = attend
+    num_heads: int,
+) -> torch.Tensor:
+    """One query row against a cache: the math of ``mha_reference`` for one
+    row (same scale, -1e30 fill, safe softmax), scores and p·v in f32."""
+    b, l, d = k.shape
+    dh = d // num_heads
+    qh = q.reshape(b, num_heads, dh).float()
+    kh = k.reshape(b, l, num_heads, dh).float()
+    scores = torch.einsum("bhd,blhd->bhl", qh, kh) / (dh**0.5)
+    scores = scores.masked_fill(~valid[:, None, :], -1e30)
+    e = torch.exp(scores - scores.amax(dim=-1, keepdim=True))
+    e = torch.where(scores <= -5e29, 0.0, e)
+    p = e / e.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+    out = torch.einsum("bhl,blhd->bhd", p, v.reshape(b, l, num_heads, dh).float())
+    return out.reshape(b, d).to(q.dtype)
+
+
+class TransformerDecoderLayer(nn.Module):
+    """Post-norm decoder layer: causal self-attention → cross-attention over
+    the encoder memory → FFN. Parameter names are the flax module's."""
+
+    def __init__(
+        self,
+        embed_dim: int,
+        num_heads: int,
+        ffn_dim: int,
+        dropout: float = 0.0,
+        activation: str = "gelu",
+        layer_norm_eps: float = 1e-12,
+        generator: Optional[torch.Generator] = None,
+    ) -> None:
+        super().__init__()
+        d = embed_dim
+        self.num_heads = num_heads
+        self.self_qkv = _linear(d, 3 * d, generator)
+        self.self_out = _linear(d, d, generator)
+        self.norm1 = nn.LayerNorm(d, eps=layer_norm_eps)
+        self.cross_q = _linear(d, d, generator)
+        self.cross_kv = _linear(d, 2 * d, generator)
+        self.cross_out = _linear(d, d, generator)
+        self.norm2 = nn.LayerNorm(d, eps=layer_norm_eps)
+        self.ffn1 = _linear(d, ffn_dim, generator)
+        self.ffn2 = _linear(ffn_dim, d, generator)
+        self.norm3 = nn.LayerNorm(d, eps=layer_norm_eps)
+        self.dropout = nn.Dropout(dropout)
+        self.act = _activation(activation)
+
+    def forward(
+        self,
+        x: torch.Tensor,  # [B, Lt, D] target stream
+        memory: torch.Tensor,  # [B, Ls, D] encoder output
+        tgt_key_padding_mask: Optional[torch.Tensor] = None,  # [B, Lt] True = pad
+        memory_key_padding_mask: Optional[torch.Tensor] = None,  # [B, Ls]
+        causal: bool = True,
+    ) -> torch.Tensor:
+        d = x.shape[-1]
+        h = self.num_heads
+        q, k, v = (_heads(t, h) for t in self.self_qkv(x).split(d, dim=-1))
+        attn = multihead_attention(q, k, v, tgt_key_padding_mask, causal)
+        x = self.norm1(x + self.dropout(self.self_out(_merge(attn))))
+
+        k, v = (_heads(t, h) for t in self.cross_kv(memory).split(d, dim=-1))
+        cross = multihead_attention(_heads(self.cross_q(x), h), k, v,
+                                    memory_key_padding_mask, False)
+        x = self.norm2(x + self.dropout(self.cross_out(_merge(cross))))
+
+        y = self.dropout(self.act(self.ffn1(x)))
+        return self.norm3(x + self.dropout(self.ffn2(y)))
+
+    def project_memory(self, memory: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Once-per-decode cross-attention (k, v), each [B, Ls, D]."""
+        k, v = self.cross_kv(memory).split(memory.shape[-1], dim=-1)
+        return k, v
+
+    def step(
+        self,
+        x: torch.Tensor,  # [B, D] embedded token at position `pos`
+        cache_k: torch.Tensor,  # [B, Lmax, D] self-attention key cache, written at pos
+        cache_v: torch.Tensor,  # [B, Lmax, D]
+        pos: int,
+        mem_k: torch.Tensor,  # [B, Ls, D] from project_memory
+        mem_v: torch.Tensor,
+        memory_valid: torch.Tensor,  # [B, Ls] bool, True = real memory position
+    ) -> torch.Tensor:
+        """One decode position; writes this position's k, v into the caches
+        in place and returns y [B, D]."""
+        d = x.shape[-1]
+        q, k, v = self.self_qkv(x).split(d, dim=-1)
+        cache_k[:, pos] = k
+        cache_v[:, pos] = v
+        valid = (torch.arange(cache_k.shape[1], device=x.device) <= pos).expand(cache_k.shape[:2])
+        x = self.norm1(x + self.self_out(_attend_one(q, cache_k, cache_v, valid, self.num_heads)))
+        cross = _attend_one(self.cross_q(x), mem_k, mem_v, memory_valid, self.num_heads)
+        x = self.norm2(x + self.cross_out(cross))
+        return self.norm3(x + self.ffn2(self.act(self.ffn1(x))))
+
+
+class TransformerDecoder(nn.Module):
+    def __init__(
+        self,
+        num_layers: int,
+        embed_dim: int,
+        num_heads: int,
+        ffn_dim: int,
+        dropout: float = 0.0,
+        activation: str = "gelu",
+        layer_norm_eps: float = 1e-12,
+        generator: Optional[torch.Generator] = None,
+    ) -> None:
+        super().__init__()
+        self.layers = nn.ModuleList(
+            TransformerDecoderLayer(
+                embed_dim, num_heads, ffn_dim, dropout, activation, layer_norm_eps, generator
+            )
+            for _ in range(num_layers)
+        )
+
+    def forward(self, x, memory, tgt_key_padding_mask=None, memory_key_padding_mask=None,
+                causal=True):
+        for layer in self.layers:
+            x = layer(x, memory, tgt_key_padding_mask, memory_key_padding_mask, causal)
+        return x
+
+    def project_memory(self, memory: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Per-layer cross (k, v), each [num_layers, B, Ls, D]."""
+        ks, vs = zip(*(layer.project_memory(memory) for layer in self.layers))
+        return torch.stack(ks), torch.stack(vs)
+
+    def step(self, x, cache_k, cache_v, pos, mem_k, mem_v, memory_valid) -> torch.Tensor:
+        """One position through every layer; the caches [num_layers, B, Lmax, D]
+        are written in place. Returns y [B, D]."""
+        for i, layer in enumerate(self.layers):
+            x = layer.step(x, cache_k[i], cache_v[i], pos, mem_k[i], mem_v[i], memory_valid)
+        return x
+
+
+class MLP(nn.Module):
+    """``dense_0 .. dense_{n-1}`` (weights normal(0.02), bias 0) with the
+    activation between layers, not after the last."""
+
+    def __init__(
+        self,
+        in_features: int,
+        features: Sequence[int],
+        activation: str = "relu",
+        generator: Optional[torch.Generator] = None,
+    ) -> None:
+        super().__init__()
+        self.act = _activation(activation)
+        self.num_layers = len(features)
+        for i, f in enumerate(features):
+            self.add_module(f"dense_{i}", _linear(in_features, f, generator))
+            in_features = f
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for i in range(self.num_layers):
+            x = getattr(self, f"dense_{i}")(x)
+            if i + 1 < self.num_layers:
+                x = self.act(x)
         return x

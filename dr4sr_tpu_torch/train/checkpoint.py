@@ -12,6 +12,12 @@
   writes — maps, arrays, str, bin, ints, floats, bool, nil, and the ext
   types 1 (ndarray) and 3 (numpy scalar), each ``(shape, dtype name, bytes)``,
   and 2 (complex) — and undoes flax's chunking of arrays above 1 GiB.
+* :func:`save_regenerator` / :func:`load_regenerator` — the regenerator's
+  state_dict with its widths; the loader also takes a JAX regenerator
+  msgpack (``scripts/pretrain_regenerator.py``'s output).
+* :func:`load_item_embedding` — the item table that seeds the regenerator
+  (``--embedding``): from a JAX msgpack or a ``torch.save`` checkpoint,
+  this package's or the reference's.
 """
 
 from __future__ import annotations
@@ -19,10 +25,13 @@ from __future__ import annotations
 import json
 import os
 import struct
-from typing import Any, Dict, Mapping, Tuple
+from typing import Any, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
+
+from dr4sr_tpu_torch.convert import generator_params_from_jax
+from dr4sr_tpu_torch.regen.generator import Generator
 
 
 def _write_sidecar(path: str, config, model_name: str, epoch: int, metric) -> None:
@@ -186,6 +195,74 @@ def load_jax_checkpoint(path: str) -> Dict[str, Any]:
     """The param tree (nested dicts of numpy arrays) of a JAX checkpoint."""
     with open(path, "rb") as f:
         return _unchunk(msgpack_decode(f.read()))
+
+
+def _find_item_table(node) -> Optional[np.ndarray]:
+    """The first ``item_embedding/embedding`` of a JAX param tree."""
+    if not isinstance(node, dict):
+        return None
+    emb = node.get("item_embedding")
+    if isinstance(emb, dict) and "embedding" in emb:
+        return np.asarray(emb["embedding"], np.float32)
+    for value in node.values():
+        found = _find_item_table(value)
+        if found is not None:
+            return found
+    return None
+
+
+def load_item_embedding(path: str) -> Optional[np.ndarray]:
+    """The item table [rows, D] of a checkpoint, to seed the regenerator
+    (``--embedding``): a JAX msgpack (its ``item_embedding/embedding``), or
+    a ``torch.save`` file whose ``parameters`` (or the file itself) hold
+    ``item_embedding.weight`` — this package's checkpoints and the
+    reference's ``.ckpt``, loaded with ``weights_only=True``. None if the
+    file has no item table."""
+    if is_jax_checkpoint(path):
+        return _find_item_table(load_jax_checkpoint(path))
+    saved = torch.load(path, map_location="cpu", weights_only=True)
+    params = saved.get("parameters", saved)
+    for key in ("item_embedding.weight", "item_embedding"):
+        if key in params:
+            return params[key].detach().float().numpy()
+    return None
+
+
+def save_regenerator(path: str, module) -> None:
+    """``torch.save`` of the regenerator's state_dict (on the CPU) and the
+    widths that rebuild it (``Generator.widths``)."""
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    torch.save({"model": "Generator", "widths": module.widths(),
+                "parameters": {k: v.detach().cpu() for k, v in module.state_dict().items()}},
+               path)
+
+
+def load_regenerator(path: str, device="cpu"):
+    """A ``regen.generator.Generator`` in eval mode on ``device``, from a
+    checkpoint of :func:`save_regenerator` or a JAX regenerator msgpack
+    (``{"params": ...}``, widths read from the shapes; the head count is not
+    in them, and the JAX pipeline always builds 2 heads)."""
+    if is_jax_checkpoint(path):
+        params = load_jax_checkpoint(path)["params"]
+        emb = params["item_embedding"]["embedding"]
+        widths = {
+            "num_items": emb.shape[0] - 2,
+            "k": params["condition_encoder"]["condition_layer"]["dense_1"]["kernel"].shape[1],
+            "embed_dim": emb.shape[1],
+            "num_heads": 2,
+            "num_layers": sum(1 for key in params["encoder"] if key.startswith("layer_")),
+            "ffn_dim": params["encoder"]["layer_0"]["ffn1"]["kernel"].shape[1],
+            "max_len": params["position_embedding"]["embedding"].shape[0],
+        }
+        module = Generator(**widths)
+        module.load_state_dict(generator_params_from_jax(params, module))
+    else:
+        payload = torch.load(path, map_location="cpu", weights_only=True)
+        if payload.get("model") != "Generator":
+            raise ValueError(f"{path} is not a regenerator checkpoint")
+        module = Generator(**payload["widths"])
+        module.load_state_dict(payload["parameters"])
+    return module.to(device).eval()
 
 
 def read_sidecar(path: str) -> Dict[str, Any]:

@@ -95,6 +95,85 @@ def test_import_starts_no_nvcc(tmp_path):
     assert calls == []
 
 
+@pytest.fixture
+def miner_copy(tmp_path, monkeypatch):
+    """The port's miner with its source copied to a temporary file and its
+    build directory moved to a temporary one."""
+    from dr4sr_tpu_torch.regen import miner
+
+    src = tmp_path / "seqminer.cpp"
+    src.write_text(open(miner.SOURCE).read())
+    monkeypatch.setattr(miner, "SOURCE", str(src))
+    monkeypatch.setattr(_build, "BUILD_DIR", str(tmp_path / "build"))
+    return miner, src
+
+
+@pytest.mark.parametrize("edit", ["source", "flags"])
+def test_miner_library_path_follows_source_and_flags(miner_copy, monkeypatch, edit):
+    miner, src = miner_copy
+    before = miner.library_path()
+    assert miner.library_path() == before
+    assert os.path.dirname(before) == _build.BUILD_DIR
+    assert os.path.basename(before).startswith("seqminer-") and before.endswith(".so")
+    if edit == "source":
+        src.write_text(src.read_text() + "// edited\n")
+    else:
+        monkeypatch.setattr(miner, "GXX_FLAGS", miner.GXX_FLAGS + ("-g",))
+    assert miner.library_path() != before
+
+
+def test_the_port_builds_its_own_miner_copy(miner_copy, monkeypatch):
+    """The build compiles the port's own source with the JAX package's
+    flags and writes only into the build directory; the library works."""
+    miner, src = miner_copy
+    calls = []
+    real_run = subprocess.run
+
+    def recording_run(cmd, *args, **kwargs):
+        calls.append(list(cmd))
+        return real_run(cmd, *args, **kwargs)
+
+    monkeypatch.setattr(miner.subprocess, "run", recording_run)
+    path = miner.build()
+    assert path == miner.library_path() and os.path.exists(path)
+    assert os.listdir(_build.BUILD_DIR) == [os.path.basename(path)]
+    assert len(calls) == 1
+    cmd = calls[0]
+    assert cmd[:6] == ["g++", "-O3", "-march=native", "-fopenmp", "-shared", "-fPIC"]
+    assert cmd[6] == str(src) and cmd[7] == "-o"
+    assert os.path.dirname(cmd[8]) == _build.BUILD_DIR
+    assert miner.build() == path and len(calls) == 1  # cached: no second compile
+
+
+def test_the_miner_source_is_the_ports_own():
+    from dr4sr_tpu_torch.regen import miner
+
+    port_pkg = os.path.join(REPO, "dr4sr_tpu_torch")
+    assert os.path.commonpath([miner.SOURCE, port_pkg]) == port_pkg
+    assert os.path.commonpath([_build.BUILD_DIR, port_pkg]) == port_pkg
+    jax_src = os.path.join(REPO, "dr4sr_tpu", "cpp", "seqminer.cpp")
+    code = [open(p).read().split('extern "C" {', 1)[1] for p in (miner.SOURCE, jax_src)]
+    assert code[0] == code[1]  # the same C API and code; only the header comment differs
+
+
+def test_importing_the_regen_modules_builds_nothing(tmp_path):
+    """No ``g++`` (nor ``nvcc``) at import: a stub compiler on PATH records calls."""
+    bin_dir = tmp_path / "bin"
+    bin_dir.mkdir()
+    calls = tmp_path / "calls"
+    for tool in ("g++", "nvcc"):
+        (bin_dir / tool).write_text(f'#!/bin/sh\necho {tool} "$@" >> "{calls}"\nexit 1\n')
+        (bin_dir / tool).chmod(0o755)
+    env = {**os.environ, "PATH": f"{bin_dir}{os.pathsep}{os.environ.get('PATH', '')}",
+           "PYTHONPATH": REPO}
+    code = ("import dr4sr_tpu_torch.regen.pipeline, dr4sr_tpu_torch.scripts.hybrid_inference, "
+            "dr4sr_tpu_torch.scripts.fused_pipeline")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=tmp_path, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert not calls.exists()
+
+
 def test_the_stub_sees_a_build(tmp_path):
     """The control for the test above: a build does reach the stub."""
     calls = _run_with_fake_nvcc(tmp_path, f"""

@@ -39,7 +39,18 @@ Phases, in order; any failure raises and the script exits nonzero:
    training sequence under K = 5 conditions from that regenerator (2
    forward launches a batch, none backward), its tokens against the CPU
    route's and beam width 1 against greedy (equal but for near ties), one
-   bf16 batch; stage 4 one epoch of SASRec on the assembled ``train_regen``.
+   bf16 batch; stage 4 one epoch of SASRec on the assembled ``train_regen``;
+7. zoo: on the same data, each of GRU4Rec, FMLP and CL4SRec at the
+   amazon-toys width with its ``configs/<model>.yaml`` widths: the first
+   step's gradients and 3 Adam steps' losses against the CPU route (the
+   same weights, negatives and views, dropout 0, TF32 off), a bounded run
+   of ``Trainer.train_step`` (a falling loss, attention launches 6 forward
+   and 6 backward a CL4SRec step, none for GRU4Rec and FMLP) and one
+   validation pass (recall@20 above 5x random), timed steps, a few bf16
+   steps, the GRU's and the FFT filter's device time, a profile of 5 steps;
+   CL4SRec2 on stage 4's ``train_regen`` with views of the original rows;
+   the ``condense``, ``split`` and ``selection`` dataset classes (their row
+   counts against the JAX package's, 10 SASRec steps each).
 
 It prints one ``{"kernels": [...]}`` line, then as its last line
 ``{"ok": true, "device": {...}}``. It imports nothing of JAX. Kernel times
@@ -47,9 +58,10 @@ are device time per call (:func:`device_ms`).
 
     python3 chip_smoke.py --controls
 
-runs only the card-vs-CPU gradient checks of phases 5 and 6, once with each
-of a few deliberate faults patched into the backward route, and prints
-whether the check caught each (a ``control {...}`` line per path and fault).
+runs only the card-vs-CPU gradient checks of phases 5, 6 and 7 (CL4SRec),
+once with each of a few deliberate faults patched into the backward route,
+and prints whether the check caught each (a ``control {...}`` line per path
+and fault).
 """
 
 from __future__ import annotations
@@ -71,6 +83,7 @@ from dr4sr_tpu_torch.convert import generator_params_from_jax
 from dr4sr_tpu_torch.data.dataset import prepare_datasets
 from dr4sr_tpu_torch.data.synthetic import markov_sequences, write_synthetic_dataset
 from dr4sr_tpu_torch.models.base import RecModel
+from dr4sr_tpu_torch.models.cl4srec import augment_views
 from dr4sr_tpu_torch.models.sasrec import SASRec
 from dr4sr_tpu_torch.ops import _build, attention
 from dr4sr_tpu_torch.ops.attention import (
@@ -196,6 +209,37 @@ NEAR_TIE_SHARE = 0.01
 # their largest) wrong on the CPU route against float64; at τ = 3 (largest
 # probability about 0.99) no parameter's f32 error there exceeds 2.5e-6
 REGEN_PARITY_TAU = 3.0
+
+# phase 7, the zoo: configs/basemodel.yaml's model section and each model's
+# configs/<model>.yaml, written out as (model section, train section)
+ZOO_MODELS = {
+    "GRU4Rec": ({"hidden_size": 256, "layer_num": 2, "dropout_rate": 0.2},
+                {"learning_rate": 1e-3, "weight_decay": 1e-4}),
+    "FMLP": ({"layer_num": 2, "dropout_rate": 0.5}, {}),
+    "CL4SRec": ({**{k: v for k, v in CONFIG["model"].items() if k != "model"},
+                 "augment_type": "item_random", "temperature": 1.0, "cl_weight": 0.1,
+                 "tau": 0.2, "gamma": 0.7, "beta": 0.2}, {}),
+}
+ZOO_MODELS["CL4SRec2"] = ZOO_MODELS["CL4SRec"]
+# train steps on the card. FMLP trains on per-prefix rows with one target
+# each (279,880 rows from the 19,412 train rows, 1,094 steps an epoch), where
+# the others' rows carry 14.4 targets on average, so it takes 300 steps.
+# GRU4Rec takes 600 (8 epochs), without weight decay (ZOO_RUN_TRAIN)
+ZOO_STEPS = {"GRU4Rec": 600, "FMLP": 300, "CL4SRec": 60, "CL4SRec2": 60}
+# train-section changes for the bounded runs only (the card-vs-CPU checks
+# keep each config as it is): under configs/gru4rec.yaml's coupled weight
+# decay 1e-4, Adam moves every item row that a batch misses by about the
+# learning rate toward 0 (its whole gradient is the decay term), so on an
+# 11,925-item catalog GRU4Rec's loss barely falls and its recall stays near
+# random; the same run with the shipped decay is reported beside it
+# (``shipped_train_config`` on the zoo line), not checked
+ZOO_RUN_TRAIN = {"GRU4Rec": {"weight_decay": 0.0}}
+# attention calls of a CL4SRec step: 3 encodes (the batch, two views) x 2 layers
+CL_ATTENTION = 3 * 2
+# train rows of each ablation dataset class on the synthetic data: the JAX
+# package's dr4sr_tpu.data.dataset (CPU) builds these many
+JAX_CLASS_ROWS = {"condense": 6721, "split": 20865, "selection": 9706}
+CLASS_STEPS = 10
 
 
 def log(msg: str) -> None:
@@ -454,7 +498,8 @@ def serve(requests, card):
 
 def profiled(label, fn):
     """``fn()`` under ``torch.profiler``: device time by kernel, host time by
-    op, and the device's busy share of the wall time (:func:`_log_profile`)."""
+    op, and the device's busy share of the wall time (:func:`_log_profile`).
+    Returns (device µs, wall µs)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -464,7 +509,7 @@ def profiled(label, fn):
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     log(f"profile: {label}")
-    _log_profile(prof, wall_us)
+    return _log_profile(prof, wall_us), wall_us
 
 
 def _device_rows(events):
@@ -490,6 +535,7 @@ def _log_profile(prof, wall_us):
                 f"calls {e.count:6d} {e.key[:90]}")
     for e in sorted(events, key=lambda e: -e.self_cpu_time_total)[:12]:
         log(f"  host_us {e.self_cpu_time_total:10.1f} calls {e.count:6d} {e.key[:90]}")
+    return device_us
 
 
 def _train_cfg(workdir, **train):
@@ -768,14 +814,13 @@ def check_decodes(card_gen, sequences):
     return result
 
 
-def regen(card):
-    """Phase 6: the regeneration pipeline, on a dataset written to a
-    temporary directory that is removed afterwards. The ``regen`` line holds
-    what the stages read, also when one of them fails."""
+def regen(card, workdir):
+    """Phase 6: the regeneration pipeline, on a dataset written to
+    ``workdir``. The ``regen`` line holds what the stages read, also when
+    one of them fails."""
     result = {"card": card}
     try:
-        with tempfile.TemporaryDirectory(prefix="chip_smoke_regen_") as workdir:
-            return _regen(workdir, result)
+        return _regen(workdir, result)
     finally:
         log(f"regen {json.dumps(result)}")
 
@@ -903,6 +948,204 @@ def _regen(workdir, result):
             {"regen_pretrain": pre_bwd, "regen_decode": dec_bwd, "regen_train": tr_bwd})
 
 
+def _zoo_cfg(workdir, model, **train):
+    """The phase-5 config with ``model``'s sections of ZOO_MODELS."""
+    model_cfg, train_cfg = ZOO_MODELS[model]
+    cfg = _train_cfg(workdir, **{**train_cfg, **train})
+    cfg["model"] = {"embed_dim": 64, "loss_fn": "bce", **model_cfg, "model": model}
+    return cfg
+
+
+def _train_steps(trainer, steps):
+    """``steps`` steps of ``Trainer.train_step`` over the batches of epochs
+    0, 1, ...; the losses as a list."""
+    losses, nepoch = [], 0
+    while len(losses) < steps:
+        losses += [trainer.train_step(trainer.device_batch(batch, is_train=True))
+                   for batch, _ in zip(trainer.train_batches(nepoch), range(steps - len(losses)))]
+        nepoch += 1
+    return torch.stack(losses).tolist()
+
+
+def zoo_card_vs_cpu(model, workdir):
+    """``model`` from the same initial weights, with dropout 0 and the same
+    fed negatives and (CL4SRec) views: the first step's gradients and 3 Adam
+    steps' losses of ``Trainer.loss``, card against CPU."""
+    cfg = _zoo_cfg(workdir, model)
+    cfg["model"]["dropout_rate"] = 0.0
+    host = Trainer(cfg, prepare_datasets(cfg, root=workdir), workdir=workdir, device="cpu")
+    rng = np.random.default_rng(0)
+    gen = torch.Generator().manual_seed(0)
+    steps = []
+    for batch, _ in zip(host.train_batches(0), range(3)):
+        cpu_batch = host.device_batch(batch, is_train=True)
+        neg = rng.integers(1, NUM_ITEMS, size=cpu_batch["item_id"].shape + (1,))
+        views = None
+        if host.contrastive:
+            views = augment_views(gen, cpu_batch["in_item_id"], cpu_batch["seqlen"],
+                                  cfg["model"], NUM_ITEMS)
+        steps.append((batch, torch.from_numpy(neg), views))
+    runs = {}
+    for device in ("cuda", "cpu"):
+        trainer = Trainer(cfg, prepare_datasets(cfg, root=workdir), workdir=workdir,
+                          device=device)
+        trainer.init_state()
+        losses, grads = [], None
+        for batch, neg, views in steps:
+            trainer.optimizer.zero_grad(set_to_none=True)
+            if views is not None:
+                views = [tuple(t.to(device) for t in view) for view in views]
+            loss = trainer.loss(trainer.device_batch(batch, is_train=True),
+                                neg_id=neg.to(device), views=views)
+            loss.backward()
+            if grads is None:
+                grads = {k: p.grad.detach().cpu() for k, p in trainer.rec.module.named_parameters()}
+            trainer.optimizer.step()
+            losses.append(loss.item())
+        runs[device] = (losses, grads)
+    return _parity(runs)
+
+
+def _library_ms(trainer):
+    """Device ms a step of the slice's library calls at the train shape,
+    forward and backward: the GRU stack (cuDNN) and the FFT filters
+    (rfft → complex weight → irfft, once a layer)."""
+    module = trainer.rec.module
+    x = torch.randn(BATCH, 50, 64, device="cuda", requires_grad=True)
+    if hasattr(module, "gru"):
+        g = torch.randn(BATCH, 50, module.gru.hidden_size, device="cuda")
+        return {"gru_ms": device_ms(lambda: module.gru(x)[0].backward(g), calls=20)}
+    if hasattr(module, "encoder") and hasattr(module.encoder.layers[0], "filter"):
+        w = module.encoder.layers[0].filter.complex_weight
+        g = torch.randn(BATCH, 50, 64, device="cuda")
+
+        def fft():
+            fx = torch.fft.rfft(x, dim=1, norm="ortho") * torch.complex(w[..., 0], w[..., 1])
+            torch.fft.irfft(fx, n=50, dim=1, norm="ortho").backward(g)
+
+        return {"fft_ms": len(module.encoder.layers) * device_ms(fft, calls=20)}
+    return {}
+
+
+def _bounded_run(cfg, workdir, steps):
+    """A fresh trainer on the card, ``steps`` steps and one validation pass:
+    (trainer, losses, validation metrics, seconds)."""
+    trainer = Trainer(cfg, prepare_datasets(cfg, root=workdir), workdir=workdir, device="cuda")
+    trainer.init_state()
+    t0 = time.perf_counter()
+    losses = _train_steps(trainer, steps)
+    val = trainer.validate()
+    torch.cuda.synchronize()
+    return trainer, losses, val, time.perf_counter() - t0
+
+
+def zoo_model(model, workdir, card, result, train_file=""):
+    """One model of the zoo on the card, into ``result``: ZOO_STEPS steps of
+    ``Trainer.train_step`` and one validation pass, counted; then timed
+    steps, bf16 steps, the library calls' device time and a profile."""
+    cfg = _zoo_cfg(workdir, model, **ZOO_RUN_TRAIN.get(model, {}))
+    cfg["data"]["train_file"] = train_file
+    steps = ZOO_STEPS[model]
+    flash_attention_fwd.launches = 0
+    flash_attention_bwd.launches = 0
+    trainer, losses, val, run_s = _bounded_run(cfg, workdir, steps)
+    fwd, bwd = flash_attention_fwd.launches, flash_attention_bwd.launches
+    eval_batches = len(trainer.val_data.get_loader())
+    want = ((CL_ATTENTION * steps + 2 * eval_batches, CL_ATTENTION * steps)
+            if trainer.contrastive else (0, 0))
+    result.update(model=model, train_rows=len(trainer.train_data), steps=steps, run_s=run_s,
+                  loss_first10=float(np.mean(losses[:10])),
+                  loss_last10=float(np.mean(losses[-10:])), val=val, eval_batches=eval_batches,
+                  attention_fwd_launches=fwd, attention_bwd_launches=bwd,
+                  want_launches=list(want), card=card)
+    if (fwd, bwd) != want:
+        raise AssertionError(f"{model} launches: forward {fwd}, backward {bwd} (want {want})")
+    if not (np.isfinite(losses).all() and result["loss_last10"] < result["loss_first10"]):
+        raise AssertionError(f"{model}: the train loss did not fall: {losses}")
+    random_recall = 20 / (NUM_ITEMS - 1)
+    if not val["recall@20"] > 5 * random_recall:
+        raise AssertionError(f"{model}: validation recall@20 {val['recall@20']} is not above "
+                             f"5 x random ({random_recall})")
+    if model in ZOO_RUN_TRAIN:  # the same run as the config ships it, reported
+        _, shipped, shipped_val, _ = _bounded_run(_zoo_cfg(workdir, model), workdir, steps)
+        result["shipped_train_config"] = {
+            **ZOO_MODELS[model][1], "loss_first10": float(np.mean(shipped[:10])),
+            "loss_last10": float(np.mean(shipped[-10:])), "recall@20": shipped_val["recall@20"]}
+
+    # timed steps (uncounted), each from host batch to done
+    lat_ms = []
+    for i, (batch, _) in enumerate(zip(trainer.train_batches(1), range(31))):
+        t0 = time.perf_counter()
+        trainer.train_step(trainer.device_batch(batch, is_train=True))
+        torch.cuda.synchronize()
+        if i > 0:  # the first step is the warm-up
+            lat_ms.append((time.perf_counter() - t0) * 1e3)
+    result.update(step_ms_p50=float(np.percentile(lat_ms, 50)),
+                  step_ms_p90=float(np.percentile(lat_ms, 90)), timed_steps=len(lat_ms),
+                  sequences_per_s=BATCH * len(lat_ms) / (sum(lat_ms) / 1e3))
+    batches = [b for b, _ in zip(trainer.train_batches(2), range(5))]
+    device_us, wall_us = profiled(
+        f"5 {model} train steps",
+        lambda: [trainer.train_step(trainer.device_batch(b, is_train=True)) for b in batches])
+    result.update(profile_device_ms_per_step=device_us / 5e3,
+                  profile_busy_share=device_us / wall_us, **_library_ms(trainer))
+
+    bf16_cfg = copy.deepcopy(cfg)
+    bf16_cfg["train"]["precision"] = "bf16"
+    bf16 = Trainer(bf16_cfg, prepare_datasets(cfg, root=workdir), workdir=workdir, device="cuda")
+    bf16.init_state()
+    result["bf16_losses"] = _train_steps(bf16, 3)
+    if not np.isfinite(result["bf16_losses"]).all():
+        raise AssertionError(f"{model} bf16 steps: losses {result['bf16_losses']}")
+    if any(p.dtype != torch.float32 for p in bf16.rec.module.parameters()):
+        raise AssertionError(f"{model} bf16 steps: master weights are not f32")
+
+
+def dataset_class(key, workdir):
+    """The ``key`` dataset class on the synthetic train rows: its row count
+    against the JAX package's, and CLASS_STEPS SASRec steps on the card."""
+    cfg = _train_cfg(workdir)
+    cfg["data"]["dataset_class"] = key
+    trainer = Trainer(cfg, prepare_datasets(cfg, root=workdir), workdir=workdir, device="cuda")
+    trainer.init_state()
+    flash_attention_fwd.launches = 0
+    flash_attention_bwd.launches = 0
+    losses = _train_steps(trainer, CLASS_STEPS)
+    torch.cuda.synchronize()
+    fwd, bwd = flash_attention_fwd.launches, flash_attention_bwd.launches
+    layers = TRAIN_CONFIG["model"]["layer_num"]
+    result = {"rows": len(trainer.train_data), "jax_rows": JAX_CLASS_ROWS[key],
+              "tokens": int(trainer.train_data.rows().seqlen.sum()), "losses": losses,
+              "attention_fwd_launches": fwd, "attention_bwd_launches": bwd}
+    if result["rows"] != JAX_CLASS_ROWS[key]:
+        raise AssertionError(f"{key}: {result['rows']} train rows; the JAX package builds "
+                             f"{JAX_CLASS_ROWS[key]}")
+    if not np.isfinite(losses).all() or (fwd, bwd) != (layers * CLASS_STEPS,) * 2:
+        raise AssertionError(f"{key}: losses {losses}, launches {fwd}/{bwd}")
+    return result
+
+
+def zoo(card, workdir):
+    """Phase 7 on phase 6's dataset and ``train_regen``. The ``zoo`` line
+    holds what each part read, also when one of them fails."""
+    result = {"card": card}
+    try:
+        for model in ("GRU4Rec", "FMLP", "CL4SRec"):
+            result[model] = {"card_vs_cpu": zoo_card_vs_cpu(model, workdir)}
+            check_card_vs_cpu(result[model]["card_vs_cpu"])
+            zoo_model(model, workdir, card, result[model])
+        result["CL4SRec2"] = {}
+        zoo_model("CL4SRec2", workdir, card, result["CL4SRec2"], train_file="_regen")
+        result["dataset_classes"] = {}
+        for key in JAX_CLASS_ROWS:
+            result["dataset_classes"][key] = dataset_class(key, workdir)
+    finally:
+        log(f"zoo {json.dumps(result)}")
+    paths = {f"zoo_{m.lower()}": m for m in ZOO_STEPS}
+    return ({p: result[m]["attention_fwd_launches"] for p, m in paths.items()},
+            {p: result[m]["attention_bwd_launches"] for p, m in paths.items()})
+
+
 # deliberate faults in the backward route, each of which the card-vs-CPU
 # check should catch: the key-padding mask dropped, the causal mask dropped,
 # and the row log-sum-exp off by 1e-3 (every p scaled by e^-0.001)
@@ -917,18 +1160,21 @@ FAULTS = {
 
 
 def controls() -> int:
-    """``--controls``: the card-vs-CPU checks of SASRec and of the
-    regenerator with each of ``FAULTS`` patched into
+    """``--controls``: the card-vs-CPU checks of SASRec, of the
+    regenerator and of CL4SRec with each of ``FAULTS`` patched into
     ``FlashAttention.backward``'s call of the backward kernels. On the
     regenerator's path the key-padding mask matters (left-aligned sources
-    under non-causal cross-attention), so there all three must be caught."""
+    under non-causal cross-attention), so there all three must be caught.
+    CL4SRec's views are right-padded and causal as SASRec's rows are, so a
+    dropped key-padding mask may be invisible there too."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     with tempfile.TemporaryDirectory(prefix="chip_smoke_controls_") as workdir:
         datasets = _datasets(workdir)
         pairs = mine(markov_sequences(num_users=NUM_USERS, num_items=NUM_ITEMS, seed=0))[1]
         for path, run in (("sasrec", lambda: card_vs_cpu(datasets, workdir)),
-                          ("regen", lambda: regen_card_vs_cpu(pairs))):
+                          ("regen", lambda: regen_card_vs_cpu(pairs)),
+                          ("cl4srec", lambda: zoo_card_vs_cpu("CL4SRec", workdir))):
             log(f"control {json.dumps({'path': path, 'fault': None, **run()})}")
             for name, fault in FAULTS.items():
                 # the wrapper adds to ``attention.flash_attention_bwd.launches``: the fault's
@@ -999,6 +1245,7 @@ def main() -> int:
         return controls()
 
     # 1. device
+    start = time.perf_counter()
     kind = torch.cuda.get_device_name(0)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True, timeout=60)
@@ -1025,18 +1272,26 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     fwd_cases = [check_attention(i, *c) for i, c in enumerate(ATTENTION_CASES + FWD_ONLY_CASES)]
     bwd_cases = [check_attention_bwd(i, *c) for i, c in enumerate(ATTENTION_CASES)]
+    log(f"elapsed after phase 3: {time.perf_counter() - start:.1f}s")
 
     # 4. serve through the kernels
     hist = markov_sequences(num_users=3000, num_items=NUM_ITEMS, min_len=1, max_len=80, seed=0)
     hist[0] = []  # one empty history
     requests = [hist[0:1000], hist[1000:2000], hist[2000:3000]]  # 1000 = 3·256 + 232
     serve_launches, serve_bwd_launches = serve(requests, card)
+    log(f"elapsed after phase 4: {time.perf_counter() - start:.1f}s")
 
     # 5. train through the kernels
     train_fwd_launches, train_bwd_launches = train(card)
+    log(f"elapsed after phase 5: {time.perf_counter() - start:.1f}s")
 
-    # 6. the regeneration pipeline through the kernels
-    regen_fwd_launches, regen_bwd_launches = regen(card)
+    # 6. the regeneration pipeline through the kernels, then 7. the model zoo
+    # on the same data and the assembled train_regen
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_regen_") as workdir:
+        regen_fwd_launches, regen_bwd_launches = regen(card, workdir)
+        log(f"elapsed after phase 6: {time.perf_counter() - start:.1f}s")
+        zoo_fwd_launches, zoo_bwd_launches = zoo(card, workdir)
+        log(f"elapsed after phase 7: {time.perf_counter() - start:.1f}s")
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = [{
@@ -1046,7 +1301,7 @@ def main() -> int:
         "replaces": "dr4sr_tpu/ops/attention.py:66",
         "launches": train_fwd_launches,
         "launches_by_path": {"serve": serve_launches, "train": train_fwd_launches,
-                             **regen_fwd_launches},
+                             **regen_fwd_launches, **zoo_fwd_launches},
         **{key: fwd_cases[0][key] for key in keys},
         "sass_hmma": hmma["flash_attention_fwd"],
         "cases": fwd_cases,
@@ -1057,7 +1312,7 @@ def main() -> int:
         "replaces": "dr4sr_tpu/ops/attention.py:206",
         "launches": train_bwd_launches,
         "launches_by_path": {"serve": serve_bwd_launches, "train": train_bwd_launches,
-                             **regen_bwd_launches},
+                             **regen_bwd_launches, **zoo_bwd_launches},
         **{key: bwd_cases[0][key] for key in keys},
         "sass_hmma": hmma["flash_attention_bwd"],
         "cases": bwd_cases,

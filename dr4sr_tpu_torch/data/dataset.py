@@ -9,11 +9,12 @@ Port of the ``general`` half of ``dr4sr_tpu/data/dataset.py``:
   seqlen, label, domain_id(, hist)]``, cf. ``data/dataset.py:79-91``);
 * :func:`_load_meta` — ``meta.npz``, or a scan of ``inter.csv`` with the
   ``csv`` module (no pandas);
-* :class:`SeqDataset` (``general``), :func:`get_dataset_class` and
-  :func:`prepare_datasets`.
-
-The other dataset classes (``pattern``, ``condense``, ``split``,
-``selection``, ``mix``) come with the regen slices; asking for one raises.
+* :class:`SeqDataset` (``general``) and the ablation classes
+  :class:`PatternDataset` (``pattern``), :class:`CondenseDataset`
+  (``condense``), :class:`SplitDataset` (``split``),
+  :class:`SelectionDataset` (``selection``) and :class:`MixDataset`
+  (``mix``), whose train rows equal the JAX package's element for element;
+  :func:`get_dataset_class` and :func:`prepare_datasets`.
 """
 
 from __future__ import annotations
@@ -48,6 +49,21 @@ class RowData:
 
     def __len__(self) -> int:
         return int(self.user_id.shape[0])
+
+    @property
+    def max_seq_len(self) -> int:
+        return int(self.in_item_id.shape[1])
+
+    def select(self, index: np.ndarray) -> "RowData":
+        return RowData(
+            user_id=self.user_id[index],
+            in_item_id=self.in_item_id[index],
+            item_id=self.item_id[index],
+            seqlen=self.seqlen[index],
+            label=self.label[index],
+            domain_id=self.domain_id[index],
+            user_hist=None if self.user_hist is None else self.user_hist[index],
+        )
 
     @staticmethod
     def concat(parts: Sequence["RowData"]) -> "RowData":
@@ -128,11 +144,10 @@ def load_rows(path_no_ext: str, is_train: bool, max_seq_len: int) -> RowData:
             user_hist=data.get("user_hist"),
         )
     if os.path.exists(pth_path):
-        import torch
+        from dr4sr_tpu_torch.serialization import load_with_numpy
 
-        # the reference's row lists are plain Python containers: no pickled code
-        rows = torch.load(pth_path, weights_only=True)
-        return rows_from_lists(rows, is_train, max_seq_len)
+        # the reference's row lists: Python containers, maybe numpy values
+        return rows_from_lists(load_with_numpy(pth_path), is_train, max_seq_len)
     raise FileNotFoundError(f"no dataset file at {path_no_ext}{{.npz,.pth}}")
 
 
@@ -215,8 +230,15 @@ class SeqDataset:
             self._data = {d: p for d, p in zip(self.domain_name_list, parts)}
 
     def build(self) -> None:
-        """Post-load transform hook (the regen dataset classes repack rows here)."""
-        self.data = self._data
+        """Post-load transform hook: the train rows go through
+        :meth:`_transform_train`, which the ablation classes override."""
+        if self.phase == "train":
+            self.data = self._transform_train(self._data)
+        else:
+            self.data = self._data
+
+    def _transform_train(self, data: RowData) -> RowData:
+        return data
 
     @property
     def num_users(self) -> int:
@@ -244,7 +266,7 @@ class SeqDataset:
         return mask
 
     def get_loader(self, batch_size: Optional[int] = None, shuffle: Optional[bool] = None,
-                   seed: int = 0):
+                   seed: int = 0, pad_to_full: bool = True, drop_last: bool = False):
         from dr4sr_tpu_torch.data.loader import BatchIterator
 
         if batch_size is None:
@@ -252,22 +274,162 @@ class SeqDataset:
             batch_size = int(self.config[section]["batch_size"])
         if shuffle is None:
             shuffle = self.phase == "train"
-        return BatchIterator(self.rows(), batch_size, shuffle=shuffle, seed=seed)
+        return BatchIterator(self.rows(), batch_size, shuffle=shuffle, seed=seed,
+                             pad_to_full=pad_to_full, drop_last=drop_last)
 
 
-_DATASET_CLASSES = {"general": SeqDataset}
-_NOT_PORTED = ("pattern", "condense", "split", "selection", "mix")
+class PatternDataset(SeqDataset):
+    """Parallel original and pattern (regenerated) train rows (reference
+    ``PatternDataset``, ``data/dataset.py:166-222``): the pattern view reads
+    ``train{train_file}``, the original view ``train``; ``set_mode`` picks
+    one of them or both."""
+
+    def _load(self) -> None:
+        if self.phase != "train":
+            super()._load()
+        else:
+            suffix = self.config["data"].get("train_file", "")
+            self._pattern_data = RowData.concat([
+                load_rows(os.path.join(self.root, self.name, dom, "train" + suffix), True,
+                          self.max_seq_len)
+                for dom in self.domain_name_list
+            ])
+            self._data = RowData.concat([
+                load_rows(os.path.join(self.root, self.name, dom, "train"), True,
+                          self.max_seq_len)
+                for dom in self.domain_name_list
+            ])
+        self.mode = "original"
+
+    def set_mode(self, mode: str) -> None:
+        if self.phase != "train":
+            raise ValueError("set_mode applies to the train phase")
+        if mode == "original":
+            self.data = self._data
+        elif mode == "pattern":
+            self.data = self._pattern_data
+        elif mode == "all":
+            self.data = RowData.concat([self._data, self._pattern_data])
+        else:
+            raise NotImplementedError(mode)
+        self.mode = mode
+
+
+class CondenseDataset(SeqDataset):
+    """Greedy packing: the longest remaining row, then the shortest ones
+    while they fit in ``max_seq_len`` (reference
+    ``CondenseDataset._condense_sequences``, ``data/dataset.py:300-332``)."""
+
+    def _transform_train(self, data: RowData) -> RowData:
+        L = self.max_seq_len
+        order = np.argsort(-data.seqlen, kind="stable")
+        seqs = data.in_item_id[order]
+        tgts = data.item_id[order]
+        lens = data.seqlen[order].tolist()
+        out_seq, out_tgt, out_len = [], [], []
+        lo, hi = 0, len(lens) - 1
+        while lo <= hi:
+            cur_seq = list(seqs[lo][: lens[lo]])
+            cur_tgt = list(tgts[lo][: lens[lo]])
+            cur_len = lens[lo]
+            while lo != hi and cur_len + lens[hi] <= L:
+                cur_seq += list(seqs[hi][: lens[hi]])
+                cur_tgt += list(tgts[hi][: lens[hi]])
+                cur_len += lens[hi]
+                hi -= 1
+            out_seq.append(cur_seq + [0] * (L - cur_len))
+            out_tgt.append(cur_tgt + [0] * (L - cur_len))
+            out_len.append(cur_len)
+            lo += 1
+        n = len(out_seq)
+        seq_arr = np.asarray(out_seq, np.int32).reshape(n, L)
+        return RowData(
+            user_id=np.zeros(n, np.int32),
+            in_item_id=seq_arr,
+            item_id=np.asarray(out_tgt, np.int32).reshape(n, L),
+            seqlen=np.asarray(out_len, np.int32),
+            label=(seq_arr != 0).astype(np.float32),
+            domain_id=np.zeros(n, np.int32),
+        )
+
+
+class SplitDataset(SeqDataset):
+    """Rows longer than half of ``max_seq_len`` (and at least 10) are cut in
+    two at a point drawn from ``np.random.default_rng(seed)`` in [5, n − 5]
+    (reference ``SplitDataset``): the kept rows first, then every first
+    half, then every second half."""
+
+    def __init__(self, *args, seed: int = 0, **kwargs):
+        self._rng = np.random.default_rng(seed)
+        super().__init__(*args, **kwargs)
+
+    def _transform_train(self, data: RowData) -> RowData:
+        L = self.max_seq_len
+        keep, first, cuts = [], [], []
+        for i in range(len(data)):
+            n = int(data.seqlen[i])
+            if n > L // 2 and n >= 10:
+                first.append(i)
+                cuts.append(int(self._rng.integers(5, n - 5 + 1)))
+            else:
+                keep.append(i)
+        parts = [data.select(np.asarray(keep, np.int64))] if keep else []
+        if first:
+            idx = np.asarray(first, np.int64)
+            for which in (0, 1):
+                sel = data.select(idx)
+                for j, (i, cut) in enumerate(zip(first, cuts)):
+                    n = int(data.seqlen[i])
+                    lo, hi = (0, cut) if which == 0 else (cut, n)
+                    sel.in_item_id[j] = np.pad(data.in_item_id[i][lo:hi], (0, L - (hi - lo)))
+                    sel.item_id[j] = np.pad(data.item_id[i][lo:hi], (0, L - (hi - lo)))
+                    sel.seqlen[j] = hi - lo
+                    sel.label[j] = np.arange(L) < hi - lo
+                parts.append(sel)
+        return RowData.concat(parts)
+
+
+class SelectionDataset(SeqDataset):
+    """A random half of the train rows: the first ``n // 2`` of a
+    ``np.random.default_rng(seed)`` permutation (reference
+    ``SelectionDataset``)."""
+
+    def __init__(self, *args, seed: int = 0, **kwargs):
+        self._rng = np.random.default_rng(seed)
+        super().__init__(*args, **kwargs)
+
+    def _transform_train(self, data: RowData) -> RowData:
+        n = len(data)
+        return data.select(self._rng.permutation(n)[: n // 2])
+
+
+class MixDataset(SeqDataset):
+    """One mixed train file for every domain, ``<root>/<name>/train.*``
+    (reference ``MixDataset``, ``data/dataset.py:224-265``); eval rows stay
+    per domain."""
+
+    def _load(self) -> None:
+        if self.phase == "train":
+            self._data = load_rows(os.path.join(self.root, self.name, "train"), True,
+                                   self.max_seq_len)
+        else:
+            super()._load()
+
+
+_DATASET_CLASSES = {
+    "general": SeqDataset,
+    "pattern": PatternDataset,
+    "condense": CondenseDataset,
+    "split": SplitDataset,
+    "selection": SelectionDataset,
+    "mix": MixDataset,
+}
 
 
 def get_dataset_class(config: Dict[str, Any]):
     """Dispatch on ``config['data']['dataset_class']``
     (reference ``BaseModel._get_dataset_class``)."""
     key = config["data"].get("dataset_class", "general")
-    if key in _NOT_PORTED:
-        raise NotImplementedError(
-            f"dataset_class {key!r} is not ported to dr4sr_tpu_torch yet (it comes with the "
-            f"regen slices); use 'general' or the JAX package"
-        )
     if key not in _DATASET_CLASSES:
         raise NotImplementedError(f"dataset_class {key!r}")
     return _DATASET_CLASSES[key]

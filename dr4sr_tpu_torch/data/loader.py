@@ -3,8 +3,9 @@
 Port of ``dr4sr_tpu/data/loader.py``: the same ``np.random.default_rng(seed)``
 permutation, so the batches equal the JAX loader's bit for bit. The final
 partial batch is padded up to ``batch_size`` (with row 0 of the order's
-indices set to 0) and flagged by the ``valid`` mask. Fixed shapes keep one
-set of kernel launch shapes per epoch and are what a later CUDA graph needs.
+indices set to 0) and flagged by the ``valid`` mask, unless ``pad_to_full``
+is off; ``drop_last`` leaves it out. Fixed shapes keep one set of kernel
+launch shapes per epoch and are what a later CUDA graph needs.
 
 Batches are dicts of numpy arrays with the reference's key schema
 (``data/dataset.py:149-164``): ``user_id, in_item_id, item_id, seqlen, label,
@@ -29,13 +30,19 @@ class BatchIterator:
         batch_size: int,
         shuffle: bool = True,
         seed: int = 0,
+        pad_to_full: bool = True,
+        drop_last: bool = False,
     ) -> None:
         self.rows = rows
         self.batch_size = int(batch_size)
         self.shuffle = shuffle
+        self.pad_to_full = pad_to_full
+        self.drop_last = drop_last
         self._rng = np.random.default_rng(seed)
 
     def __len__(self) -> int:
+        if self.drop_last:
+            return len(self.rows) // self.batch_size
         return (len(self.rows) + self.batch_size - 1) // self.batch_size
 
     def __iter__(self) -> Iterator[Batch]:
@@ -45,7 +52,7 @@ class BatchIterator:
         for b in range(len(self)):
             idx = order[b * bs : (b + 1) * bs]
             valid_count = len(idx)
-            if valid_count < bs:
+            if self.pad_to_full and valid_count < bs:
                 idx = np.concatenate([idx, np.zeros(bs - valid_count, dtype=idx.dtype)])
             yield self._make_batch(idx, valid_count)
 

@@ -16,6 +16,12 @@ Port of ``dr4sr_tpu/modules/layers.py:31-355`` and ``:525-538``:
   per position), whose one-query attention :func:`_attend_one` is plain
   PyTorch, as the JAX package computes it outside Pallas.
 * :class:`MLP` — ``dense_i`` Linear layers with relu between them.
+* :func:`gru_stack` — GRU4Rec's bias-free multi-layer GRU (``GRUStack``,
+  ``:358-423``): ``nn.GRU(bias=False, batch_first=True)``, every weight
+  U(−1/√H, 1/√H) from the caller's generator. JAX runs the recurrence as a
+  ``lax.scan`` outside Pallas; here it is cuDNN's on the card.
+* :class:`FilterLayer`, :class:`FMLPLayer`, :class:`FMLPEncoder` — FMLP's
+  learnable frequency filter (``:452-522``) by ``torch.fft``.
 
 flax's ``nn.gelu`` is the tanh approximation, so ``"gelu"`` here is
 ``F.gelu(approximate="tanh")``.
@@ -342,4 +348,89 @@ class MLP(nn.Module):
             x = getattr(self, f"dense_{i}")(x)
             if i + 1 < self.num_layers:
                 x = self.act(x)
+        return x
+
+
+def gru_stack(
+    input_size: int, hidden_size: int, num_layers: int,
+    generator: Optional[torch.Generator] = None,
+) -> nn.GRU:
+    """Bias-free GRU over [B, L, Din] -> [B, L, H] (gates r, z, n in the JAX
+    ``GRUStack``'s order) with every weight drawn U(−1/√H, 1/√H) from
+    ``generator``, torch's own default range. It runs over all L positions,
+    padding included, as the JAX scan does."""
+    gru = nn.GRU(input_size, hidden_size, num_layers=num_layers, bias=False, batch_first=True)
+    bound = 1.0 / hidden_size**0.5
+    with torch.no_grad():
+        for w in gru.parameters():
+            w.uniform_(-bound, bound, generator=generator)
+    return gru
+
+
+class FilterLayer(nn.Module):
+    """Learnable frequency-domain filter: rfft over the sequence axis →
+    pointwise complex weight → irfft (both ``norm="ortho"``), dropout, then
+    LayerNorm of the residual. ``complex_weight`` is [1, L//2+1, D, 2]
+    (real, imaginary).
+
+    The JAX package computes the same map as a real [L, L, D] operator in
+    one einsum by default (a TPU workaround; ``use_fft=True`` takes
+    ``jnp.fft``). The FFT runs in f32 whatever the input's dtype: cuFFT has
+    no bf16. Under bf16 autocast the layer therefore gets and returns f32
+    where JAX's bf16 path runs the einsum in bf16, so the two bf16 results
+    differ; only f32 is held to JAX's."""
+
+    def __init__(
+        self, max_seq_len: int, embed_dim: int, dropout: float = 0.5,
+        layer_norm_eps: float = 1e-12, generator: Optional[torch.Generator] = None,
+    ) -> None:
+        super().__init__()
+        self.complex_weight = nn.Parameter(torch.empty(1, max_seq_len // 2 + 1, embed_dim, 2))
+        normal_(self.complex_weight, generator)
+        self.dropout = nn.Dropout(dropout)
+        self.norm = nn.LayerNorm(embed_dim, eps=layer_norm_eps)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:  # [B, L, D]
+        l = x.shape[1]
+        fx = torch.fft.rfft(x.float(), dim=1, norm="ortho")
+        w = self.complex_weight[:, : fx.shape[1]]
+        fx = fx * torch.complex(w[..., 0], w[..., 1])
+        y = torch.fft.irfft(fx, n=l, dim=1, norm="ortho").to(x.dtype)
+        return self.norm(self.dropout(y) + x)
+
+
+class FMLPLayer(nn.Module):
+    """The filter, then a 4·D gelu FFN with dropout and a post-norm residual."""
+
+    def __init__(
+        self, max_seq_len: int, embed_dim: int, dropout: float = 0.5,
+        layer_norm_eps: float = 1e-12, generator: Optional[torch.Generator] = None,
+    ) -> None:
+        super().__init__()
+        self.filter = FilterLayer(max_seq_len, embed_dim, dropout, layer_norm_eps, generator)
+        self.ffn1 = _linear(embed_dim, 4 * embed_dim, generator)
+        self.ffn2 = _linear(4 * embed_dim, embed_dim, generator)
+        self.dropout = nn.Dropout(dropout)
+        self.norm = nn.LayerNorm(embed_dim, eps=layer_norm_eps)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = self.filter(x)
+        y = self.ffn2(F.gelu(self.ffn1(x), approximate="tanh"))
+        return self.norm(self.dropout(y) + x)
+
+
+class FMLPEncoder(nn.Module):
+    def __init__(
+        self, num_layers: int, max_seq_len: int, embed_dim: int, dropout: float = 0.5,
+        layer_norm_eps: float = 1e-12, generator: Optional[torch.Generator] = None,
+    ) -> None:
+        super().__init__()
+        self.layers = nn.ModuleList(
+            FMLPLayer(max_seq_len, embed_dim, dropout, layer_norm_eps, generator)
+            for _ in range(num_layers)
+        )
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for layer in self.layers:
+            x = layer(x)
         return x

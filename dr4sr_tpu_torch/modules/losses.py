@@ -9,9 +9,11 @@ boolean ``mask`` (True = real position) and reproduces the same numerics:
   contribution divided by ``M`` (the bilevel reweighter's input).
 * BPR: ``-Σ mean_neg logσ(pos-neg)/M``.
 * :func:`alignment` and :func:`uniformity` of normalized representations.
+* :func:`info_nce_loss` (``:104-151``), CL4SRec's in-batch InfoNCE.
 
 The loss arithmetic is f32 whatever the scores' dtype (bf16 under autocast).
-``info_nce_loss`` comes with CL4SRec.
+Masked logits are −1e30, not −inf, as in the JAX package: a row whose every
+logit is masked stays finite.
 """
 
 from __future__ import annotations
@@ -20,6 +22,8 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+
+_NEG = -1e30
 
 
 def binary_cross_entropy_loss(
@@ -86,3 +90,44 @@ def uniformity(x: torch.Tensor, valid: Optional[torch.Tensor] = None) -> torch.T
         off = off & valid[:, None] & valid[None, :]
     w = off.float()
     return torch.log((torch.exp(-2.0 * d2) * w).sum() / w.sum().clamp_min(1.0))
+
+
+def info_nce_loss(
+    rep_i: torch.Tensor,  # [B, D]
+    rep_j: torch.Tensor,  # [B, D]
+    temperature: float = 1.0,
+    sim_method: str = "inner_product",
+    instance_labels: Optional[torch.Tensor] = None,  # [B]
+    valid: Optional[torch.Tensor] = None,  # [B] bool; False rows contribute 0
+    reduce: bool = True,
+    neg_type: str = "batch_both",
+) -> torch.Tensor:
+    """In-batch InfoNCE. ``batch_both``: logits [sim_ij | sim_ii] (2B − 1
+    negatives) with self (and same-label pairs) masked; ``batch_single``:
+    sim_ij only (B − 1 negatives). The label is the row's own column of
+    sim_ij. Rows with ``valid`` False neither count nor act as negatives."""
+    rep_i, rep_j = rep_i.float(), rep_j.float()
+    b = rep_i.shape[0]
+    if sim_method == "cosine":
+        rep_i, rep_j = _normalize(rep_i), _normalize(rep_j)
+    sim_ii = rep_i @ rep_i.T / temperature
+    sim_ij = rep_i @ rep_j.T / temperature
+    eye = torch.eye(b, dtype=torch.bool, device=rep_i.device)
+    if instance_labels is not None:
+        same = instance_labels[:, None] == instance_labels[None, :]
+        sim_ii = sim_ii.masked_fill(same, _NEG)
+        sim_ij = sim_ij.masked_fill(same & ~eye, _NEG)
+    else:
+        sim_ii = sim_ii.masked_fill(eye, _NEG)
+    if valid is not None:
+        col_pad = ~valid[None, :]
+        sim_ii = sim_ii.masked_fill(col_pad, _NEG)
+        sim_ij = sim_ij.masked_fill(col_pad & ~eye, _NEG)
+    logits = sim_ij if neg_type == "batch_single" else torch.cat([sim_ij, sim_ii], dim=-1)
+    per_row = -torch.diagonal(F.log_softmax(logits, dim=-1))
+    if valid is not None:
+        per_row = torch.where(valid, per_row, 0.0)
+        count = valid.float().sum().clamp_min(1.0)
+    else:
+        count = float(b)
+    return per_row.sum() / count if reduce else per_row / count

@@ -17,10 +17,10 @@ import pickle
 from typing import List, Optional
 
 import numpy as np
-import torch
 
 from dr4sr_tpu_torch.data.dataset import RowData, load_rows, rows_from_lists
 from dr4sr_tpu_torch.regen.pipeline import build_pretraining_dataset
+from dr4sr_tpu_torch.serialization import load_with_numpy
 
 
 def load_seq2pat(root: str) -> List[List[int]]:
@@ -32,7 +32,7 @@ def load_seq2pat(root: str) -> List[List[int]]:
             flat, offsets = z["flat"], z["offsets"]
         return [flat[offsets[i] : offsets[i + 1]].tolist() for i in range(len(offsets) - 1)]
     pth = os.path.join(root, "seq2pat_data.pth")
-    return [[int(x) for x in s] for s in torch.load(pth, weights_only=True)]
+    return [[int(x) for x in s] for s in load_with_numpy(pth)]
 
 
 def main(argv: Optional[List[str]] = None) -> None:

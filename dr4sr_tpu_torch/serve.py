@@ -2,6 +2,11 @@
 
 Port of ``dr4sr_tpu/serve.py::Recommender``: pad the histories into fixed
 batches, encode them, score the whole catalog, mask PAD/seen items, top-k.
+Any registered model serves. For a ``pre_padding`` model (FMLP, whose query
+is the last position) the histories are pre-padded, as its trainer's eval
+batches are; the JAX ``Recommender`` right-pads them for every model, so it
+serves FMLP from a padding position for any history shorter than
+``max_seq_len``.
 
     rec = RecModel(config, SASRec.build(config, num_items), num_items, 0)
     server = Recommender(rec, rec.module.state_dict())          # on "cuda"
@@ -22,7 +27,9 @@ from typing import Mapping, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from dr4sr_tpu_torch.models import get_model_class
 from dr4sr_tpu_torch.models.base import RecModel
+from dr4sr_tpu_torch.models.fmlp import pre_pad_batch
 from dr4sr_tpu_torch.train import checkpoint
 
 
@@ -42,6 +49,8 @@ class Recommender:
         module.load_state_dict(params)
         module.to(self.device).eval()
         self.rec = dataclasses.replace(rec, module=module)
+        self.pre_padding = bool(getattr(get_model_class(rec.config["model"]["model"]),
+                                        "pre_padding", False))
         self.max_seq_len = rec.max_seq_len
         self.batch_size = batch_size
         keep = (
@@ -58,9 +67,8 @@ class Recommender:
         params. ``root`` is the dataset root holding the config's dataset
         (its ``meta.npz`` sizes the catalog); ``kwargs`` go to the
         constructor (``device``, ``batch_size``, ``item_keep_mask``)."""
-        from dr4sr_tpu_torch.convert import sasrec_params_from_jax
+        from dr4sr_tpu_torch.convert import params_from_jax
         from dr4sr_tpu_torch.data.dataset import DATASET_ROOT, _load_meta
-        from dr4sr_tpu_torch.models import get_model_class
 
         if checkpoint.is_jax_checkpoint(path):
             config = checkpoint.read_sidecar(path)["config"]
@@ -72,7 +80,7 @@ class Recommender:
                              config["data"]["domain_name_list"])
         module = get_model_class(config["model"]["model"]).build(config, ds_meta["num_items"])
         if params is None:
-            params = sasrec_params_from_jax(checkpoint.load_jax_checkpoint(path), module)
+            params = params_from_jax(checkpoint.load_jax_checkpoint(path), module)
         rec = RecModel(config, module, ds_meta["num_items"], ds_meta["num_users"])
         return cls(rec, params, **kwargs)
 
@@ -105,6 +113,9 @@ class Recommender:
                 "user_hist": seq_t if exclude_seen
                 else torch.zeros((b, 1), dtype=torch.int64, device=self.device),
             }
+            if self.pre_padding:  # the seen items stay as they are in user_hist
+                pre = pre_pad_batch({"in_item_id": seq, "seqlen": seqlen})["in_item_id"]
+                batch["in_item_id"] = torch.from_numpy(pre).to(self.device)
             scores, items = self.rec.topk(batch, k, item_keep_mask=self.keep_mask)
             m = len(chunk)
             out_items[start : start + m] = items[:m].cpu().numpy()

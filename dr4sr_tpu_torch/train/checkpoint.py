@@ -32,6 +32,7 @@ import torch
 
 from dr4sr_tpu_torch.convert import generator_params_from_jax
 from dr4sr_tpu_torch.regen.generator import Generator
+from dr4sr_tpu_torch.serialization import load_with_numpy
 
 
 def _write_sidecar(path: str, config, model_name: str, epoch: int, metric) -> None:
@@ -216,11 +217,12 @@ def load_item_embedding(path: str) -> Optional[np.ndarray]:
     (``--embedding``): a JAX msgpack (its ``item_embedding/embedding``), or
     a ``torch.save`` file whose ``parameters`` (or the file itself) hold
     ``item_embedding.weight`` — this package's checkpoints and the
-    reference's ``.ckpt``, loaded with ``weights_only=True``. None if the
-    file has no item table."""
+    reference's ``.ckpt``, loaded with ``weights_only=True`` and numpy's
+    classes allowed (``serialization.load_with_numpy``). None if the file
+    has no item table."""
     if is_jax_checkpoint(path):
         return _find_item_table(load_jax_checkpoint(path))
-    saved = torch.load(path, map_location="cpu", weights_only=True)
+    saved = load_with_numpy(path, map_location="cpu")
     params = saved.get("parameters", saved)
     for key in ("item_embedding.weight", "item_embedding"):
         if key in params:

@@ -4,8 +4,10 @@ Port of ``dr4sr_tpu/train/trainer.py`` for one device: a host-side epoch
 loop around
 
 * a train step — forward in train mode, negatives drawn on the device from
-  an explicit ``torch.Generator``, BCE/BPR loss, backward (attention through
-  the CUDA backward kernel on the card), optimizer update;
+  an explicit ``torch.Generator``, BCE/BPR loss (plus, for CL4SRec and
+  CL4SRec2, ``cl_weight`` × the InfoNCE of two augmented views, drawn from
+  the same generator), backward (attention through the CUDA backward
+  kernel on the card), optimizer update;
 * an eval step — encode in eval mode, full-catalog masked top-k, per-sample
   rank metrics summed on the device; the host only divides at the end.
 
@@ -14,10 +16,17 @@ loop around
 f32. Seeds as in the JAX trainer: the weights from ``train.seed``, the
 step's draws (negatives, dropout) from ``train.seed + 1``.
 
-Not ported yet, and refused with a clear error: model classes that need a
-contrastive or auxiliary loss, a graph, prefix or pre-padded batches or
-per-epoch state (the model-zoo slice), ``train.steps_per_dispatch > 1`` (a
-later CUDA-graph PR), ``train.tensorboard_dir`` and ``train.profile_epoch``.
+Model-class flags, as the JAX trainer reads them: ``contrastive`` adds the
+contrastive term; ``aug_from_original`` (CL4SRec2) takes the views' rows
+from a second loader over the original train file; ``prefix_training``
+(FMLP) expands the train rows to per-prefix rows at construction, and
+``pre_padding`` moves the padding of every other batch to the front.
+
+Not ported yet, and refused with a clear error: model classes that need an
+auxiliary loss, a graph, per-epoch state or the bilevel trainer (GNN, the
+graph-CL models, ICLRec, DR4SR+), ``model.context_parallel > 1`` (the
+multi-GPU slice), ``train.steps_per_dispatch > 1`` (a later CUDA-graph PR),
+``train.tensorboard_dir`` and ``train.profile_epoch``.
 """
 
 from __future__ import annotations
@@ -39,14 +48,17 @@ from dr4sr_tpu_torch import evaluation
 from dr4sr_tpu_torch.data.dataset import SeqDataset
 from dr4sr_tpu_torch.models import get_model_class
 from dr4sr_tpu_torch.models.base import RecModel
+from dr4sr_tpu_torch.models.cl4srec import cl_loss
+from dr4sr_tpu_torch.models.fmlp import expand_prefix_rows, pre_pad_batch
 from dr4sr_tpu_torch.train.callbacks import Analyzer, EarlyStopping
 from dr4sr_tpu_torch.train.checkpoint import load_checkpoint
 
 logger = logging.getLogger("dr4sr_tpu_torch")
 
 # model-class flags whose code paths this package has not ported yet
-_UNPORTED_MODEL_FLAGS = ("contrastive", "aux_loss", "needs_graph", "prefix_training",
-                         "pre_padding", "refresh_state", "is_meta")
+_UNPORTED_MODEL_FLAGS = ("aux_loss", "needs_graph", "refresh_state", "is_meta")
+# CL4SRec2's views read the original train file with this seed offset
+_ORIGINAL_LOADER_SEED = 7919
 _UNPORTED_TRAIN_KEYS = ("tensorboard_dir", "profile_epoch")
 
 
@@ -141,7 +153,13 @@ class Trainer:
             if getattr(self.model_class, flag, None):
                 raise NotImplementedError(
                     f"model {self.model_name!r} needs '{flag}', which dr4sr_tpu_torch does "
-                    f"not port yet (model-zoo and DR4SR+ slices); use the JAX package")
+                    f"not port yet (the graph models, ICLRec and DR4SR+ come in later "
+                    f"slices); use the JAX package")
+        cp = int(config["model"].get("context_parallel", 1))
+        if cp > 1:
+            raise NotImplementedError(
+                f"model.context_parallel={cp} needs a mesh, which comes with the multi-GPU "
+                f"slice of dr4sr_tpu_torch; use 1 or the JAX package")
         cfg_t = config["train"]
         for key in _UNPORTED_TRAIN_KEYS:
             if cfg_t.get(key) is not None:
@@ -153,6 +171,17 @@ class Trainer:
         if prec not in ("fp32", "float32", "bf16", "bfloat16"):
             raise ValueError(f"train.precision must be fp32 or bf16, got {prec!r}")
         self.compute_dtype = torch.bfloat16 if prec.startswith("bf") else None
+
+        self.contrastive = bool(getattr(self.model_class, "contrastive", False))
+        self.aug_from_original = bool(getattr(self.model_class, "aug_from_original", False))
+        self.pre_padding = bool(getattr(self.model_class, "pre_padding", False))
+        self.prefix_training = bool(getattr(self.model_class, "prefix_training", False)
+                                    and config["data"].get("prefix_training", True))
+        if self.prefix_training and self.train_data.rows().item_id.ndim == 2:
+            # train rows become pre-padded per-prefix rows, as in the JAX trainer
+            # (which fails on a dataset an earlier trainer expanded already)
+            self.train_data.data = expand_prefix_rows(self.train_data.rows())
+        self._original_data: Optional[SeqDataset] = None
 
         self.num_items = self.train_data.num_items
         self.num_users = self.train_data.num_users
@@ -183,7 +212,18 @@ class Trainer:
         return self.rec
 
     # ------------------------------------------------------------ batch plumbing
-    def device_batch(self, batch: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+    def host_transform(self, batch: Dict[str, np.ndarray],
+                       is_train: bool = False) -> Dict[str, np.ndarray]:
+        """Pre-padding for a ``pre_padding`` model, except for train rows that
+        were prefix-expanded (already pre-padded)."""
+        if self.pre_padding and not (is_train and self.prefix_training):
+            return pre_pad_batch(batch)
+        return batch
+
+    def device_batch(self, batch: Dict[str, np.ndarray],
+                     is_train: bool = False) -> Dict[str, torch.Tensor]:
+        """A host batch on the device, after :meth:`host_transform`."""
+        batch = self.host_transform(batch, is_train)
         out = {}
         for k, v in batch.items():
             t = torch.from_numpy(np.ascontiguousarray(v))
@@ -198,15 +238,62 @@ class Trainer:
         return torch.autocast(self.device.type, dtype=self.compute_dtype)
 
     # -------------------------------------------------------------- train step
+    def loss(self, batch: Dict[str, torch.Tensor], neg_id: Optional[torch.Tensor] = None,
+             views=None) -> torch.Tensor:
+        """The training loss of a device batch (the JAX trainer's
+        ``_loss_fn``): the main loss, plus ``cl_weight`` × the contrastive
+        term for a ``contrastive`` model, over ``aug_*`` rows when the batch
+        has them. Negatives and views come from :attr:`generator` unless
+        ``neg_id`` and ``views`` give them."""
+        loss = self.rec.training_loss(batch, self.generator, neg_id=neg_id)
+        if self.contrastive:
+            valid = batch.get("aug_valid", batch.get("valid"))
+            seq = batch.get("aug_in_item_id", batch["in_item_id"])
+            if valid is None:
+                valid = torch.ones(seq.shape[0], dtype=torch.bool, device=seq.device)
+            model_cfg = self.config["model"]
+            cl = cl_loss(self.rec.module, seq, batch.get("aug_seqlen", batch["seqlen"]), valid,
+                         model_cfg, self.num_items, self.generator, views=views)
+            loss = loss + float(model_cfg.get("cl_weight", 0.1)) * cl
+        return loss.float()
+
     def train_step(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
         """One optimizer step on a device batch; returns the loss (on device)."""
         self.optimizer.zero_grad(set_to_none=True)
         with self._autocast():
-            loss = self.rec.training_loss(batch, self.generator)
+            loss = self.loss(batch)
         loss.backward()
         self.optimizer.step()
         self.step += 1
         return loss.detach()
+
+    def train_batches(self, nepoch: int):
+        """The host batches of epoch ``nepoch``; for an ``aug_from_original``
+        model each carries ``aug_in_item_id``, ``aug_seqlen`` and ``aug_valid``
+        from the original train rows, whose loader starts over when it runs
+        out."""
+        aug_iter = iter(self._original_loader(nepoch)) if self.aug_from_original else None
+        for batch in self.train_data.get_loader(seed=nepoch):
+            if aug_iter is not None:
+                aug = next(aug_iter, None)
+                if aug is None:
+                    aug_iter = iter(self._original_loader(nepoch))
+                    aug = next(aug_iter)
+                batch = dict(batch, aug_in_item_id=aug["in_item_id"], aug_seqlen=aug["seqlen"],
+                             aug_valid=aug["valid"])
+            yield batch
+
+    def _original_loader(self, nepoch: int):
+        """A loader over the train rows of ``train_file = ""`` (the same
+        dataset class, rebuilt once), shuffled from ``nepoch + 7919``."""
+        if self._original_data is None:
+            cfg = copy.deepcopy(self.config)
+            cfg["data"]["train_file"] = ""
+            ds = type(self.train_data)(cfg, phase="train", root=self.train_data.root)
+            ds.build()
+            self._original_data = ds
+        return self._original_data.get_loader(batch_size=int(self.config["train"]["batch_size"]),
+                                              seed=nepoch + _ORIGINAL_LOADER_SEED)
 
     def training_epoch(self, nepoch: int) -> float:
         if self.rec is None:
@@ -214,8 +301,8 @@ class Trainer:
         self.rec.module.train()
         total = torch.zeros((), device=self.device)
         n_steps = 0
-        for batch in self.train_data.get_loader(seed=nepoch):
-            total += self.train_step(self.device_batch(batch))
+        for batch in self.train_batches(nepoch):
+            total += self.train_step(self.device_batch(batch, is_train=True))
             n_steps += 1
         return float(total) / max(n_steps, 1)
 
@@ -256,11 +343,29 @@ class Trainer:
         denom = max(float(count), 1.0)
         return {k: float(v) / denom for k, v in sums.items()}
 
+    def _eval_domains(self, dataset: SeqDataset, rec: Optional[RecModel] = None,
+                      with_analyzer: bool = False) -> Dict[str, float]:
+        """Metrics of every domain (``<domain>_<metric>``) and their sums."""
+        output: Dict[str, float] = {}
+        domain_sums: Dict[str, float] = defaultdict(float)
+        for domain in self.domain_name_list:
+            for k, v in self._eval_epoch(dataset, domain, rec, with_analyzer).items():
+                output[f"{domain}_{k}"] = v
+                domain_sums[k] += v
+        output.update(domain_sums)
+        return output
+
+    def validate(self) -> Dict[str, float]:
+        """Validation metrics of the current params: one pass over the
+        validation rows, as each epoch of :meth:`fit` makes."""
+        return self._eval_domains(self.val_data)
+
     def _rec_with(self, params: Optional[Dict[str, torch.Tensor]]) -> RecModel:
         """The model with ``params`` loaded into a copy of the module."""
         if params is None:
             return self.rec
-        module = copy.deepcopy(self.rec.module)
+        # ``to`` re-flattens a GRU's weights for cuDNN, which a deepcopy does not
+        module = copy.deepcopy(self.rec.module).to(self.device)
         module.load_state_dict(params)
         return dataclasses.replace(self.rec, module=module)
 
@@ -351,14 +456,8 @@ class Trainer:
                 self.save_train_state(nepoch)
 
             tik = time.perf_counter()
-            domain_sums: Dict[str, float] = defaultdict(float)
             analyze = nepoch % 10 == 0
-            for domain in self.domain_name_list:
-                out = self._eval_epoch(self.val_data, domain, with_analyzer=analyze)
-                for k, v in out.items():
-                    self.logged_metrics[f"{domain}_{k}"] = v
-                    domain_sums[k] += v
-            self.logged_metrics.update(domain_sums)
+            self.logged_metrics.update(self._eval_domains(self.val_data, with_analyzer=analyze))
             self.inference_time += time.perf_counter() - tik
 
             logger.info(f"epoch {nepoch}: " + ", ".join(
@@ -376,15 +475,8 @@ class Trainer:
     def evaluate(self) -> Dict[str, float]:
         """Test metrics with the best checkpointed params
         (reference ``BaseModel.evaluate``, ``model/basemodel.py:370-402``)."""
-        rec = self._rec_with(self.best_params)
-        output: Dict[str, float] = {}
-        domain_sums: Dict[str, float] = defaultdict(float)
-        for domain in self.domain_name_list:
-            out = self._eval_epoch(self.test_data, domain, rec, with_analyzer=True)
-            for k, v in out.items():
-                output[f"{domain}_{k}"] = v
-                domain_sums[k] += v
-        output.update(domain_sums)
+        output = self._eval_domains(self.test_data, self._rec_with(self.best_params),
+                                    with_analyzer=True)
         logger.info(f"test: {output}")
         logger.info(f"training_time: {self.training_time:.1f}s "
                     f"inference_time: {self.inference_time:.1f}s")

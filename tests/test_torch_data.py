@@ -17,7 +17,13 @@ from dr4sr_tpu.data.dataset import prepare_datasets as jax_prepare_datasets
 from dr4sr_tpu.data.synthetic import synthetic_config
 from dr4sr_tpu.data.synthetic import write_synthetic_dataset as jax_write
 from dr4sr_tpu_torch import evaluation
-from dr4sr_tpu_torch.data.dataset import _load_meta, get_dataset_class, load_rows, prepare_datasets
+from dr4sr_tpu_torch.data.dataset import (
+    SeqDataset,
+    _load_meta,
+    get_dataset_class,
+    load_rows,
+    prepare_datasets,
+)
 from dr4sr_tpu_torch.data.synthetic import write_synthetic_dataset
 
 ROWS_FIELDS = ("user_id", "in_item_id", "item_id", "seqlen", "label", "domain_id", "user_hist")
@@ -105,10 +111,17 @@ def test_reference_pth_rows_and_inter_csv_meta(tmp_path):
     np.testing.assert_array_equal(ours["domain_users"]["d0"], theirs["domain_users"]["d0"])
 
 
-@pytest.mark.parametrize("name", ["pattern", "condense", "split", "selection", "mix"])
+@pytest.mark.parametrize("name", ["pattern", "condense", "split", "selection", "mix", "bogus"])
 def test_unported_dataset_classes_are_refused(name):
-    with pytest.raises(NotImplementedError, match="not ported"):
-        get_dataset_class({"data": {"dataset_class": name}})
+    """The five ablation classes are ported: dispatch returns each. A name
+    with no class is still refused."""
+    if name == "bogus":
+        with pytest.raises(NotImplementedError, match="bogus"):
+            get_dataset_class({"data": {"dataset_class": name}})
+        return
+    cls = get_dataset_class({"data": {"dataset_class": name}})
+    assert cls.__module__ == "dr4sr_tpu_torch.data.dataset"
+    assert cls.__name__ == f"{name.capitalize()}Dataset" and issubclass(cls, SeqDataset)
 
 
 @pytest.mark.parametrize("target_cols", [None, 3])

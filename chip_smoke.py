@@ -50,7 +50,18 @@ Phases, in order; any failure raises and the script exits nonzero:
    steps, the GRU's and the FFT filter's device time, a profile of 5 steps;
    CL4SRec2 on stage 4's ``train_regen`` with views of the original rows;
    the ``condense``, ``split`` and ``selection`` dataset classes (their row
-   counts against the JAX package's, 10 SASRec steps each).
+   counts against the JAX package's, 10 SASRec steps each);
+8. graph: on the same data, each of GNN, SGL, SimGCL, NCL and ICLRec at the
+   amazon-toys width with its ``configs/<model>.yaml``: both item-transition
+   graphs' edge counts against the JAX package's; the first step's
+   gradients and 3 Adam steps' losses against the CPU route (the same
+   weights, negatives and aux draws; NCL's and ICLRec's refreshed state
+   from the card in both); a bounded run through the epoch hook (so
+   NCL's and ICLRec's ``refresh_state`` runs on the card) and one
+   validation pass (recall@20 above 5x random), with launch counts; the
+   k-means of NCL's and ICLRec's refresh, Lloyd step by Lloyd step, card
+   against CPU; timed steps, a few bf16 steps, the propagation's and the
+   k-means' device time, the refresh's wall time and a profile of 5 steps.
 
 It prints one ``{"kernels": [...]}`` line, then as its last line
 ``{"ok": true, "device": {...}}``. It imports nothing of JAX. Kernel times
@@ -84,7 +95,18 @@ from dr4sr_tpu_torch.data.dataset import prepare_datasets
 from dr4sr_tpu_torch.data.synthetic import markov_sequences, write_synthetic_dataset
 from dr4sr_tpu_torch.models.base import RecModel
 from dr4sr_tpu_torch.models.cl4srec import augment_views
+from dr4sr_tpu_torch.models.gnn import batch_graph, build_transition_graph
+from dr4sr_tpu_torch.models.iclrec import ICLRec
 from dr4sr_tpu_torch.models.sasrec import SASRec
+from dr4sr_tpu_torch.modules.graph_augmentation import (
+    edge_dropout,
+    kmeans,
+    kmeans_init,
+    lloyd_update,
+    propagate_layers,
+    propagate_mean,
+    squared_distances,
+)
 from dr4sr_tpu_torch.ops import _build, attention
 from dr4sr_tpu_torch.ops.attention import (
     FlashAttention,
@@ -240,6 +262,35 @@ CL_ATTENTION = 3 * 2
 # package's dr4sr_tpu.data.dataset (CPU) builds these many
 JAX_CLASS_ROWS = {"condense": 6721, "split": 20865, "selection": 9706}
 CLASS_STEPS = 10
+
+# phase 8, the graph and intent models: configs/basemodel.yaml's model
+# section and each configs/<model>.yaml, written out
+_SASREC_WIDTHS = {k: v for k, v in CONFIG["model"].items() if k != "model"}
+GRAPH_MODELS = {
+    "GNN": {**_SASREC_WIDTHS, "graph": "old", "gnn_layer": 3, "window": 2},
+    "SGL": {**_SASREC_WIDTHS, "graph": "new", "gnn_layer": 2, "window": 2, "ssl_ratio": 0.1,
+            "ssl_weight": 0.1, "ssl_temperature": 0.2},
+    "SimGCL": {**_SASREC_WIDTHS, "graph": "new", "gnn_layer": 2, "window": 2, "noise_eps": 0.1,
+               "ssl_weight": 0.1, "ssl_temperature": 0.2},
+    "NCL": {**_SASREC_WIDTHS, "graph": "new", "hyper_layers": 1, "window": 2,
+            "num_clusters": 64, "ssl_weight": 0.1, "proto_weight": 0.1, "ssl_temperature": 0.2},
+    "ICLRec": {**_SASREC_WIDTHS, "augment_type": "item_random", "temperature": 1.0,
+               "instance_weight": 0.1, "intent_weight": 0.1, "num_intent_clusters": 32},
+}
+# edges of the 'old' (val rows without their last item) and 'new' (train
+# rows) graphs, window 2, on the synthetic data: the JAX package's
+# dr4sr_tpu.models.gnn.build_transition_graph (CPU) builds these many
+JAX_GRAPH_EDGES = {"old": 202779, "new": 202779}
+GRAPH_STEPS = 60
+# SASRec encodes a step, (forward, with gradient): ICLRec's are the batch,
+# the pooled encode that picks the intents (no gradient) and two views
+GRAPH_ENCODES = {"GNN": (1, 1), "SGL": (1, 1), "SimGCL": (1, 1), "NCL": (1, 1),
+                 "ICLRec": (4, 3)}
+# k-means, card against CPU from the same centroids at every Lloyd step: an
+# assignment may differ only where the CPU's two smallest squared distances
+# lie within KMEANS_NEAR_TIE; the updated centroids within KMEANS_ATOL
+KMEANS_NEAR_TIE = 1e-4
+KMEANS_ATOL = 1e-5
 
 
 def log(msg: str) -> None:
@@ -958,45 +1009,69 @@ def _zoo_cfg(workdir, model, **train):
 
 def _train_steps(trainer, steps):
     """``steps`` steps of ``Trainer.train_step`` over the batches of epochs
-    0, 1, ...; the losses as a list."""
+    0, 1, ..., each epoch started as ``training_epoch`` starts it, with
+    ``Trainer.refresh_state``; the losses as a list."""
     losses, nepoch = [], 0
     while len(losses) < steps:
+        trainer.refresh_state(nepoch)
         losses += [trainer.train_step(trainer.device_batch(batch, is_train=True))
                    for batch, _ in zip(trainer.train_batches(nepoch), range(steps - len(losses)))]
         nepoch += 1
     return torch.stack(losses).tolist()
 
 
-def zoo_card_vs_cpu(model, workdir):
+def _moved(x, device):
+    """Tensors, and lists, tuples and dicts of them, on ``device``."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device)
+    if isinstance(x, (list, tuple)):
+        return type(x)(_moved(v, device) for v in x)
+    if isinstance(x, dict):
+        return {k: _moved(v, device) for k, v in x.items()}
+    return x
+
+
+def zoo_card_vs_cpu(model, workdir, cfg=None):
     """``model`` from the same initial weights, with dropout 0 and the same
-    fed negatives and (CL4SRec) views: the first step's gradients and 3 Adam
-    steps' losses of ``Trainer.loss``, card against CPU."""
-    cfg = _zoo_cfg(workdir, model)
+    fed negatives, (CL4SRec) views and (aux models) aux draws: the first
+    step's gradients and 3 Adam steps' losses of ``Trainer.loss``, card
+    against CPU. A model with per-epoch state refreshes it on the card, and
+    the CPU trainer takes the card's (its k-means is checked on its own)."""
+    cfg = copy.deepcopy(cfg or _zoo_cfg(workdir, model))
     cfg["model"]["dropout_rate"] = 0.0
     host = Trainer(cfg, prepare_datasets(cfg, root=workdir), workdir=workdir, device="cpu")
     rng = np.random.default_rng(0)
     gen = torch.Generator().manual_seed(0)
+    aux_draws = getattr(host.model_class, "aux_draws", None)
     steps = []
     for batch, _ in zip(host.train_batches(0), range(3)):
         cpu_batch = host.device_batch(batch, is_train=True)
         neg = rng.integers(1, NUM_ITEMS, size=cpu_batch["item_id"].shape + (1,))
-        views = None
+        views = aux = None
         if host.contrastive:
             views = augment_views(gen, cpu_batch["in_item_id"], cpu_batch["seqlen"],
                                   cfg["model"], NUM_ITEMS)
-        steps.append((batch, torch.from_numpy(neg), views))
-    runs = {}
+        if aux_draws is not None:
+            aux = aux_draws(gen, cpu_batch, cfg["model"], NUM_ITEMS)
+        steps.append((batch, torch.from_numpy(neg), views, aux))
+    runs, state = {}, {}
     for device in ("cuda", "cpu"):
         trainer = Trainer(cfg, prepare_datasets(cfg, root=workdir), workdir=workdir,
                           device=device)
         trainer.init_state()
+        if device == "cuda":
+            trainer.refresh_state(0)
+            state = {k: v.cpu() for k, v in trainer.batch_extras.items()
+                     if not k.startswith("edge_")}
+        else:
+            trainer.batch_extras.update(state)
         losses, grads = [], None
-        for batch, neg, views in steps:
+        for batch, neg, views, aux in steps:
             trainer.optimizer.zero_grad(set_to_none=True)
-            if views is not None:
-                views = [tuple(t.to(device) for t in view) for view in views]
             loss = trainer.loss(trainer.device_batch(batch, is_train=True),
-                                neg_id=neg.to(device), views=views)
+                                neg_id=neg.to(trainer.device),
+                                views=_moved(views, trainer.device),
+                                aux_draws=_moved(aux, trainer.device))
             loss.backward()
             if grads is None:
                 grads = {k: p.grad.detach().cpu() for k, p in trainer.rec.module.named_parameters()}
@@ -1146,6 +1221,185 @@ def zoo(card, workdir):
             {p: result[m]["attention_bwd_launches"] for p, m in paths.items()})
 
 
+def _graph_cfg(workdir, model, **train):
+    """The phase-5 config with ``model``'s section of GRAPH_MODELS."""
+    cfg = _train_cfg(workdir, **train)
+    cfg["model"] = {"embed_dim": 64, "loss_fn": "bce", **GRAPH_MODELS[model], "model": model}
+    return cfg
+
+
+def kmeans_card_vs_cpu(x, k, init_idx, iters=20):
+    """The k-means of ``x`` (on the card) from its rows ``init_idx``, Lloyd
+    step by Lloyd step: from the card's centroids of each step, the card's
+    assignments against the CPU's (equal but where the CPU's two smallest
+    squared distances lie within KMEANS_NEAR_TIE) and the card's updated
+    centroids against the CPU's update from the same assignments (within
+    KMEANS_ATOL). Checking each step from the same centroids keeps one
+    near tie from moving every later step apart. Also reports how many
+    final assignments the whole runs on the two devices disagree on."""
+    x_cpu = x.cpu()
+    cents = x[init_idx.to(x.device)]
+    differ = apart = 0
+    cent_err = 0.0
+    for step in range(iters + 1):
+        d2 = squared_distances(x_cpu, cents.cpu())
+        got = squared_distances(x, cents).argmin(-1)
+        diff = got.cpu() != d2.argmin(-1)
+        two = d2.topk(2, dim=-1, largest=False).values
+        differ += int(diff.sum())
+        apart += int((diff & (two[:, 1] - two[:, 0] >= KMEANS_NEAR_TIE)).sum())
+        if step == iters:
+            break
+        new = lloyd_update(x, got, cents)
+        want = lloyd_update(x_cpu, got.cpu(), cents.cpu())
+        cent_err = max(cent_err, (new.cpu() - want).abs().max().item())
+        cents = new
+    full = (kmeans(x, k, init_idx, iters)[1].cpu() != kmeans(x_cpu, k, init_idx, iters)[1])
+    result = {"rows": x.shape[0], "k": k, "iters": iters, "assignments_checked": (iters + 1)
+              * x.shape[0], "assign_differ": differ, "assign_differ_not_near_tie": apart,
+              "near_tie": KMEANS_NEAR_TIE, "centroid_max_abs_err": cent_err,
+              "centroid_atol": KMEANS_ATOL, "whole_run_final_assign_differ": int(full.sum())}
+    if apart or cent_err > KMEANS_ATOL:
+        raise AssertionError(f"k-means card vs CPU: {result}")
+    return result
+
+
+def _propagation(trainer, gen):
+    """The propagation one train step of the trainer's graph model runs, as
+    a function of the item table (its outputs, a list)."""
+    m = trainer.config["model"]
+    extras = trainer.batch_extras
+    g = batch_graph(extras, NUM_ITEMS)
+    if m["model"] == "GNN":
+        return lambda t: [propagate_mean(g, t, int(m["gnn_layer"]))]
+    if m["model"] == "NCL":
+        return lambda t: propagate_layers(g, t, 2 * int(m["hyper_layers"]))[1:]
+    draws = trainer.model_class.aux_draws(gen, extras, m, NUM_ITEMS)
+    layers = int(m["gnn_layer"])
+    if m["model"] == "SGL":
+        return lambda t: [propagate_mean(edge_dropout(g, float(m["ssl_ratio"]), keep), t, layers)
+                          for keep in draws]
+    return lambda t: [propagate_mean(g, t, layers, noise=u, noise_eps=float(m["noise_eps"]))
+                      for u in draws]
+
+
+def graph_ms(trainer):
+    """Device ms of a step's propagation of the item table, forward and
+    backward (GNN's ``gnn_layer`` layers; SGL's and SimGCL's two views; NCL's
+    2·``hyper_layers`` layers)."""
+    fn = _propagation(trainer, torch.Generator(device="cuda").manual_seed(0))
+    table = trainer.rec.module.item_embedding.weight.detach()[:NUM_ITEMS].clone()
+    table.requires_grad_()
+    grads = [torch.randn_like(o) for o in fn(table)]
+    return device_ms(lambda: torch.autograd.grad(fn(table), table, grads), calls=20)
+
+
+def graph_model(model, workdir, card, result):
+    """One graph or intent model on the card, into ``result``: card vs CPU;
+    GRAPH_STEPS steps through the epoch hook and one validation pass,
+    counted; NCL's and ICLRec's k-means card vs CPU and their refresh's
+    time; timed steps, a profile, the propagation's device time, bf16 steps."""
+    cfg = _graph_cfg(workdir, model)
+    layers = cfg["model"]["layer_num"]
+    result["card_vs_cpu"] = zoo_card_vs_cpu(model, workdir, cfg)
+    check_card_vs_cpu(result["card_vs_cpu"])
+
+    flash_attention_fwd.launches = 0
+    flash_attention_bwd.launches = 0
+    trainer, losses, val, run_s = _bounded_run(cfg, workdir, GRAPH_STEPS)
+    fwd, bwd = flash_attention_fwd.launches, flash_attention_bwd.launches
+    steps_per_epoch = len(trainer.train_data.get_loader())
+    eval_batches = len(trainer.val_data.get_loader())
+    refreshes = -(-GRAPH_STEPS // steps_per_epoch)  # epochs started
+    refresh_encodes = steps_per_epoch if model == "ICLRec" else 0  # a batch each
+    encodes, grad_encodes = GRAPH_ENCODES[model]
+    want = (layers * (encodes * GRAPH_STEPS + eval_batches + refreshes * refresh_encodes),
+            layers * grad_encodes * GRAPH_STEPS)
+    result.update(model=model, steps=GRAPH_STEPS, run_s=run_s,
+                  loss_first10=float(np.mean(losses[:10])),
+                  loss_last10=float(np.mean(losses[-10:])), val=val, eval_batches=eval_batches,
+                  refreshes=refreshes, attention_fwd_launches=fwd, attention_bwd_launches=bwd,
+                  want_launches=list(want), card=card)
+    if getattr(trainer.model_class, "needs_graph", False):
+        result["edges"] = int(trainer.batch_extras["edge_row"].shape[0])
+        if result["edges"] != JAX_GRAPH_EDGES[cfg["model"]["graph"]]:
+            raise AssertionError(f"{model}: {result['edges']} edges; the JAX package builds "
+                                 f"{JAX_GRAPH_EDGES[cfg['model']['graph']]}")
+    if (fwd, bwd) != want:
+        raise AssertionError(f"{model} launches: forward {fwd}, backward {bwd} (want {want})")
+    if not (np.isfinite(losses).all() and result["loss_last10"] < result["loss_first10"]):
+        raise AssertionError(f"{model}: the train loss did not fall: {losses}")
+    random_recall = 20 / (NUM_ITEMS - 1)
+    if not val["recall@20"] > 5 * random_recall:
+        raise AssertionError(f"{model}: validation recall@20 {val['recall@20']} is not above "
+                             f"5 x random ({random_recall})")
+
+    if hasattr(trainer.model_class, "refresh_state"):
+        if model == "NCL":  # the prototypes' fit: the item table past PAD
+            x, k = (trainer.rec.module.item_embedding.weight.detach()[1:NUM_ITEMS],
+                    cfg["model"]["num_clusters"])
+        else:
+            x, k = ICLRec.pooled_train_reps(trainer), cfg["model"]["num_intent_clusters"]
+        init = kmeans_init(x.shape[0], k, 1)
+        result["kmeans"] = kmeans_card_vs_cpu(x, k, init)
+        result["kmeans_ms"] = device_ms(lambda: kmeans(x, k, init), calls=5)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.refresh_state(1)
+        torch.cuda.synchronize()
+        result["refresh_s"] = time.perf_counter() - t0
+
+    # timed steps (uncounted), each from host batch to done
+    lat_ms = []
+    for i, (batch, _) in enumerate(zip(trainer.train_batches(1), range(31))):
+        t0 = time.perf_counter()
+        trainer.train_step(trainer.device_batch(batch, is_train=True))
+        torch.cuda.synchronize()
+        if i > 0:  # the first step is the warm-up
+            lat_ms.append((time.perf_counter() - t0) * 1e3)
+    result.update(step_ms_p50=float(np.percentile(lat_ms, 50)),
+                  step_ms_p90=float(np.percentile(lat_ms, 90)), timed_steps=len(lat_ms),
+                  sequences_per_s=BATCH * len(lat_ms) / (sum(lat_ms) / 1e3))
+    batches = [b for b, _ in zip(trainer.train_batches(2), range(5))]
+    device_us, wall_us = profiled(
+        f"5 {model} train steps",
+        lambda: [trainer.train_step(trainer.device_batch(b, is_train=True)) for b in batches])
+    result.update(profile_device_ms_per_step=device_us / 5e3,
+                  profile_busy_share=device_us / wall_us)
+    if getattr(trainer.model_class, "needs_graph", False):
+        result["graph_ms"] = graph_ms(trainer)
+
+    bf16 = Trainer(_graph_cfg(workdir, model, precision="bf16"),
+                   prepare_datasets(cfg, root=workdir), workdir=workdir, device="cuda")
+    bf16.init_state()
+    result["bf16_losses"] = _train_steps(bf16, 3)
+    if not np.isfinite(result["bf16_losses"]).all():
+        raise AssertionError(f"{model} bf16 steps: losses {result['bf16_losses']}")
+
+
+def graph(card, workdir):
+    """Phase 8 on phase 6's dataset. The ``graph`` line holds what each
+    part read, also when one of them fails."""
+    result = {"card": card}
+    try:
+        train_sets = prepare_datasets(_train_cfg(workdir), root=workdir)
+        result["edges"] = {
+            name: len(build_transition_graph(rows.in_item_id, rows.seqlen, NUM_ITEMS, 2,
+                                             drop_last=name == "old")[0])
+            for name, rows in (("old", train_sets[1].rows()), ("new", train_sets[0].rows()))}
+        if result["edges"] != JAX_GRAPH_EDGES:
+            raise AssertionError(f"graph edges {result['edges']}; the JAX package builds "
+                                 f"{JAX_GRAPH_EDGES}")
+        for model in GRAPH_MODELS:
+            result[model] = {}
+            graph_model(model, workdir, card, result[model])
+    finally:
+        log(f"graph {json.dumps(result)}")
+    paths = {f"graph_{m.lower()}": m for m in GRAPH_MODELS}
+    return ({p: result[m]["attention_fwd_launches"] for p, m in paths.items()},
+            {p: result[m]["attention_bwd_launches"] for p, m in paths.items()})
+
+
 # deliberate faults in the backward route, each of which the card-vs-CPU
 # check should catch: the key-padding mask dropped, the causal mask dropped,
 # and the row log-sum-exp off by 1e-3 (every p scaled by e^-0.001)
@@ -1286,12 +1540,15 @@ def main() -> int:
     log(f"elapsed after phase 5: {time.perf_counter() - start:.1f}s")
 
     # 6. the regeneration pipeline through the kernels, then 7. the model zoo
-    # on the same data and the assembled train_regen
+    # on the same data and the assembled train_regen, and 8. the graph and
+    # intent models on the same data
     with tempfile.TemporaryDirectory(prefix="chip_smoke_regen_") as workdir:
         regen_fwd_launches, regen_bwd_launches = regen(card, workdir)
         log(f"elapsed after phase 6: {time.perf_counter() - start:.1f}s")
         zoo_fwd_launches, zoo_bwd_launches = zoo(card, workdir)
         log(f"elapsed after phase 7: {time.perf_counter() - start:.1f}s")
+        graph_fwd_launches, graph_bwd_launches = graph(card, workdir)
+        log(f"elapsed after phase 8: {time.perf_counter() - start:.1f}s")
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = [{
@@ -1301,7 +1558,8 @@ def main() -> int:
         "replaces": "dr4sr_tpu/ops/attention.py:66",
         "launches": train_fwd_launches,
         "launches_by_path": {"serve": serve_launches, "train": train_fwd_launches,
-                             **regen_fwd_launches, **zoo_fwd_launches},
+                             **regen_fwd_launches, **zoo_fwd_launches,
+                             **graph_fwd_launches},
         **{key: fwd_cases[0][key] for key in keys},
         "sass_hmma": hmma["flash_attention_fwd"],
         "cases": fwd_cases,
@@ -1312,7 +1570,8 @@ def main() -> int:
         "replaces": "dr4sr_tpu/ops/attention.py:206",
         "launches": train_bwd_launches,
         "launches_by_path": {"serve": serve_bwd_launches, "train": train_bwd_launches,
-                             **regen_bwd_launches, **zoo_bwd_launches},
+                             **regen_bwd_launches, **zoo_bwd_launches,
+                             **graph_bwd_launches},
         **{key: bwd_cases[0][key] for key in keys},
         "sass_hmma": hmma["flash_attention_bwd"],
         "cases": bwd_cases,

@@ -9,7 +9,9 @@ flax ``Dense`` kernels are [in, out] and become ``Linear`` weights [out, in];
 become ``nn.GRU``'s ``gru.weight_ih_lk`` [3H, Din] and ``gru.weight_hh_lk``
 [3H, H] (both gate orders are r, z, n); FMLP's filter keeps its
 ``complex_weight`` as it is, and its auto-named ``LayerNorm_0`` becomes
-``norm``. Every leaf of the JAX tree must be used, and the result must hold
+``norm``. GNN's ``backbone/...`` becomes ``backbone....`` (the same
+encoder rules), the VQ layers' ``level_i/codebook`` stays ``level_i.codebook``.
+Every leaf of the JAX tree must be used, and the result must hold
 exactly the module's keys at its shapes, or the conversion raises.
 """
 

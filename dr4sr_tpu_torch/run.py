@@ -6,7 +6,8 @@ come with the multi-GPU slice):
     python -m dr4sr_tpu_torch.run -m SASRec -d amazon-toys [--root dataset]
         [--train-file _ori] [--epochs N] [--cpu] [--set section.key=value ...]
 
-``-m`` is SASRec, GRU4Rec, FMLP, CL4SRec or CL4SRec2. It runs on the card
+``-m`` is SASRec, GRU4Rec, FMLP, CL4SRec, CL4SRec2, GNN, SGL, SimGCL, NCL or
+ICLRec (DR4SR+'s ``MetaModel`` is refused). It runs on the card
 unless ``--cpu`` asks for the CPU. Configs are read from ``configs/``
 (PyYAML).
 """

@@ -60,7 +60,7 @@ def main(argv: Optional[List[str]] = None) -> None:
 
     num_items = domain_num_items(args.root_path)
     device = "cpu" if args.cpu else "cuda"
-    generator = load_regenerator(os.path.join(args.root_path, args.ckpt_name))
+    generator = load_regenerator(os.path.join(args.root_path, args.ckpt_name), device=device)
     if (generator.num_items, generator.k) != (num_items, args.K):
         raise SystemExit(f"{args.ckpt_name} has num_items={generator.num_items}, "
                          f"K={generator.k}; the domain has {num_items} items, --K is {args.K}")

@@ -2,7 +2,9 @@
 
 Port of ``dr4sr_tpu/serve.py::Recommender``: pad the histories into fixed
 batches, encode them, score the whole catalog, mask PAD/seen items, top-k.
-Any registered model serves. For a ``pre_padding`` model (FMLP, whose query
+Any registered model serves but GNN, whose encoder reads the
+item-transition graph (refused; SGL, SimGCL and NCL use the graph only in
+their training loss and serve). For a ``pre_padding`` model (FMLP, whose query
 is the last position) the histories are pre-padded, as its trainer's eval
 batches are; the JAX ``Recommender`` right-pads them for every model, so it
 serves FMLP from a padding position for any history shorter than
@@ -42,6 +44,11 @@ class Recommender:
         batch_size: int = 256,
         device="cuda",
     ) -> None:
+        if getattr(rec.module, "reads_graph", False):
+            raise NotImplementedError(
+                f"{rec.config['model']['model']} encodes through the item-transition graph, "
+                f"which serving does not build (nor does the JAX Recommender, which cannot "
+                f"serve GNN either); evaluate it with Trainer.evaluate()")
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("device='cuda' asked for, but CUDA is not available")

@@ -32,6 +32,7 @@ import torch
 
 from dr4sr_tpu_torch.convert import generator_params_from_jax
 from dr4sr_tpu_torch.regen.generator import Generator
+from dr4sr_tpu_torch.regen.pipeline import torch_device
 from dr4sr_tpu_torch.serialization import load_with_numpy
 
 
@@ -239,8 +240,9 @@ def save_regenerator(path: str, module) -> None:
                path)
 
 
-def load_regenerator(path: str, device="cpu"):
-    """A ``regen.generator.Generator`` in eval mode on ``device``, from a
+def load_regenerator(path: str, device="cuda"):
+    """A ``regen.generator.Generator`` in eval mode on ``device`` (the card
+    unless the caller asks for the CPU; raises without CUDA), from a
     checkpoint of :func:`save_regenerator` or a JAX regenerator msgpack
     (``{"params": ...}``, widths read from the shapes; the head count is not
     in them, and the JAX pipeline always builds 2 heads)."""
@@ -264,7 +266,7 @@ def load_regenerator(path: str, device="cpu"):
             raise ValueError(f"{path} is not a regenerator checkpoint")
         module = Generator(**payload["widths"])
         module.load_state_dict(payload["parameters"])
-    return module.to(device).eval()
+    return module.to(torch_device(device)).eval()
 
 
 def read_sidecar(path: str) -> Dict[str, Any]:

@@ -5,9 +5,10 @@ loop around
 
 * a train step — forward in train mode, negatives drawn on the device from
   an explicit ``torch.Generator``, BCE/BPR loss (plus, for CL4SRec and
-  CL4SRec2, ``cl_weight`` × the InfoNCE of two augmented views, drawn from
-  the same generator), backward (attention through the CUDA backward
-  kernel on the card), optimizer update;
+  CL4SRec2, ``cl_weight`` × the InfoNCE of two augmented views, and a
+  model's ``aux_loss``, their draws from the same generator), backward
+  (attention through the CUDA backward kernel on the card), optimizer
+  update;
 * an eval step — encode in eval mode, full-catalog masked top-k, per-sample
   rank metrics summed on the device; the host only divides at the end.
 
@@ -16,16 +17,22 @@ loop around
 f32. Seeds as in the JAX trainer: the weights from ``train.seed``, the
 step's draws (negatives, dropout) from ``train.seed + 1``.
 
-Model-class flags, as the JAX trainer reads them: ``contrastive`` adds the
-contrastive term; ``aug_from_original`` (CL4SRec2) takes the views' rows
-from a second loader over the original train file; ``prefix_training``
-(FMLP) expands the train rows to per-prefix rows at construction, and
-``pre_padding`` moves the padding of every other batch to the front.
+Model-class flags and hooks, as the JAX trainer reads them:
+``contrastive`` adds the contrastive term; ``aug_from_original`` (CL4SRec2)
+takes the views' rows from a second loader over the original train file;
+``prefix_training`` (FMLP) expands the train rows to per-prefix rows at
+construction, and ``pre_padding`` moves the padding of every other batch to
+the front; ``needs_graph`` (GNN, SGL, SimGCL, NCL) builds the item-transition
+graph once on the host and moves it to the device once; its edges ride in
+``batch_extras``, merged into every device batch, train and eval;
+``aux_loss`` (with ``aux_draws``, its random draws) adds a model's term to
+the loss; ``refresh_state`` refits per-epoch state (NCL's prototypes,
+ICLRec's intents) into ``batch_extras`` at the start of every epoch
+(:meth:`Trainer.refresh_state`).
 
-Not ported yet, and refused with a clear error: model classes that need an
-auxiliary loss, a graph, per-epoch state or the bilevel trainer (GNN, the
-graph-CL models, ICLRec, DR4SR+), ``model.context_parallel > 1`` (the
-multi-GPU slice), ``train.steps_per_dispatch > 1`` (a later CUDA-graph PR),
+Not ported yet, and refused with a clear error: the bilevel trainer
+(``is_meta``: DR4SR+), ``model.context_parallel > 1`` (the multi-GPU
+slice), ``train.steps_per_dispatch > 1`` (a later CUDA-graph PR),
 ``train.tensorboard_dir`` and ``train.profile_epoch``.
 """
 
@@ -50,13 +57,14 @@ from dr4sr_tpu_torch.models import get_model_class
 from dr4sr_tpu_torch.models.base import RecModel
 from dr4sr_tpu_torch.models.cl4srec import cl_loss
 from dr4sr_tpu_torch.models.fmlp import expand_prefix_rows, pre_pad_batch
+from dr4sr_tpu_torch.models.gnn import build_transition_graph
 from dr4sr_tpu_torch.train.callbacks import Analyzer, EarlyStopping
 from dr4sr_tpu_torch.train.checkpoint import load_checkpoint
 
 logger = logging.getLogger("dr4sr_tpu_torch")
 
 # model-class flags whose code paths this package has not ported yet
-_UNPORTED_MODEL_FLAGS = ("aux_loss", "needs_graph", "refresh_state", "is_meta")
+_UNPORTED_MODEL_FLAGS = ("is_meta",)
 # CL4SRec2's views read the original train file with this seed offset
 _ORIGINAL_LOADER_SEED = 7919
 _UNPORTED_TRAIN_KEYS = ("tensorboard_dir", "profile_epoch")
@@ -153,8 +161,7 @@ class Trainer:
             if getattr(self.model_class, flag, None):
                 raise NotImplementedError(
                     f"model {self.model_name!r} needs '{flag}', which dr4sr_tpu_torch does "
-                    f"not port yet (the graph models, ICLRec and DR4SR+ come in later "
-                    f"slices); use the JAX package")
+                    f"not port yet (DR4SR+ comes in a later slice); use the JAX package")
         cp = int(config["model"].get("context_parallel", 1))
         if cp > 1:
             raise NotImplementedError(
@@ -194,6 +201,25 @@ class Trainer:
         self.step = 0
         self.generator: Optional[torch.Generator] = None  # negatives
         self.best_params: Optional[Dict[str, torch.Tensor]] = None
+        # per-model device constants merged into every device batch: the
+        # graph's edges, and the state refresh_state refits every epoch
+        self.batch_extras: Dict[str, torch.Tensor] = {}
+        if getattr(self.model_class, "needs_graph", False):
+            self._build_graph()
+
+    # ------------------------------------------------------------------ graph
+    def _build_graph(self) -> None:
+        """``model.graph`` 'old': the val rows without their last item;
+        'new': the train rows; window ``model.window``."""
+        cfg_m = self.config["model"]
+        old = cfg_m.get("graph", "old") == "old"
+        rows = (self.val_data if old else self.train_data).rows()
+        row, col, weight = build_transition_graph(
+            rows.in_item_id, rows.seqlen, self.num_items, window=int(cfg_m.get("window", 2)),
+            drop_last=old)
+        self.batch_extras = {"edge_row": torch.from_numpy(row).long().to(self.device),
+                             "edge_col": torch.from_numpy(col).long().to(self.device),
+                             "edge_weight": torch.from_numpy(weight).to(self.device)}
 
     # ------------------------------------------------------------------- init
     def init_state(self, seed: Optional[int] = None) -> RecModel:
@@ -230,6 +256,7 @@ class Trainer:
             if t.dtype == torch.int32:
                 t = t.long()
             out[k] = t.to(self.device, non_blocking=True)
+        out.update(self.batch_extras)
         return out
 
     def _autocast(self):
@@ -239,12 +266,13 @@ class Trainer:
 
     # -------------------------------------------------------------- train step
     def loss(self, batch: Dict[str, torch.Tensor], neg_id: Optional[torch.Tensor] = None,
-             views=None) -> torch.Tensor:
+             views=None, aux_draws=None) -> torch.Tensor:
         """The training loss of a device batch (the JAX trainer's
         ``_loss_fn``): the main loss, plus ``cl_weight`` × the contrastive
         term for a ``contrastive`` model, over ``aug_*`` rows when the batch
-        has them. Negatives and views come from :attr:`generator` unless
-        ``neg_id`` and ``views`` give them."""
+        has them, plus the model's ``aux_loss``. Negatives, views and the
+        aux term's draws come from :attr:`generator` unless ``neg_id``,
+        ``views`` and ``aux_draws`` give them."""
         loss = self.rec.training_loss(batch, self.generator, neg_id=neg_id)
         if self.contrastive:
             valid = batch.get("aug_valid", batch.get("valid"))
@@ -255,6 +283,13 @@ class Trainer:
             cl = cl_loss(self.rec.module, seq, batch.get("aug_seqlen", batch["seqlen"]), valid,
                          model_cfg, self.num_items, self.generator, views=views)
             loss = loss + float(model_cfg.get("cl_weight", 0.1)) * cl
+        aux_loss = getattr(self.model_class, "aux_loss", None)
+        if aux_loss is not None:
+            model_cfg = self.config["model"]
+            if aux_draws is None:
+                aux_draws = self.model_class.aux_draws(self.generator, batch, model_cfg,
+                                                       self.num_items)
+            loss = loss + aux_loss(self.rec.module, batch, model_cfg, self.num_items, aux_draws)
         return loss.float()
 
     def train_step(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
@@ -295,9 +330,18 @@ class Trainer:
         return self._original_data.get_loader(batch_size=int(self.config["train"]["batch_size"]),
                                               seed=nepoch + _ORIGINAL_LOADER_SEED)
 
+    def refresh_state(self, nepoch: int) -> None:
+        """The model's per-epoch state (``refresh_state``: k-means
+        prototypes or intents under the current weights) into
+        :attr:`batch_extras`; nothing for a model without the hook."""
+        refresh = getattr(self.model_class, "refresh_state", None)
+        if refresh is not None:
+            self.batch_extras.update(refresh(self, nepoch))
+
     def training_epoch(self, nepoch: int) -> float:
         if self.rec is None:
             raise RuntimeError("call init_state() first")
+        self.refresh_state(nepoch)
         self.rec.module.train()
         total = torch.zeros((), device=self.device)
         n_steps = 0

@@ -24,7 +24,14 @@ import numpy as np
 import pytest
 import torch
 from torch_one_thread import one_torch_thread  # noqa: F401  (autouse)
-from torch_zoo_parity import assert_grads_match, port_rec, to_jax, to_torch, zoo_config
+from torch_zoo_parity import (
+    assert_grads_match,
+    jax_aug_draws,
+    port_rec,
+    to_jax,
+    to_torch,
+    zoo_config,
+)
 
 from dr4sr_tpu.data.dataset import prepare_datasets as jax_prepare_datasets
 from dr4sr_tpu.data.synthetic import write_synthetic_dataset as jax_write
@@ -54,29 +61,9 @@ def _seqs(seed, b=48):
     return seq, seqlen
 
 
-def _start(key, seqlen, sub_len):
-    return jax.random.randint(key, seqlen.shape, 0, jnp.maximum(seqlen - sub_len + 1, 1))
-
-
 def jax_draws(kind, key, seqlen, l):
     """The port's draws for one call of JAX's ``augment(key, ..., kind)``."""
-    seqlen = jnp.asarray(seqlen)
-    b = seqlen.shape[0]
-    if kind == "item_random":
-        r_pick, key = jax.random.split(key)
-        kind = augmentation.KINDS[int(jax.random.randint(r_pick, (), 0, 3))]
-    start = u = None
-    if kind == "item_crop":
-        start = _start(key, seqlen, jnp.maximum(1, (TAO * seqlen).astype(jnp.int32)))
-    elif kind == "item_mask":
-        u = jax.random.uniform(key, (b, l))
-    else:
-        r_start, r_perm = jax.random.split(key)
-        start = _start(r_start, seqlen, (BETA * seqlen).astype(jnp.int32))
-        u = jax.random.uniform(r_perm, (b, l))
-    return {"kind": kind,
-            "start": None if start is None else torch.tensor(np.asarray(start)).long(),
-            "u": None if u is None else torch.tensor(np.asarray(u))}
+    return jax_aug_draws(kind, key, seqlen, l, tao=TAO, beta=BETA)
 
 
 def _apply(seq, seqlen, draws):

@@ -78,7 +78,7 @@ def test_stage1_writes_what_the_jax_cli_writes(root, tmp_path):
 
 
 def test_stage2_checkpoint_loads(root):
-    module = load_regenerator(str(root / "synthetic" / "syn" / "regenerator.pt"))
+    module = load_regenerator(str(root / "synthetic" / "syn" / "regenerator.pt"), device="cpu")
     assert module.num_items == NUM_ITEMS and module.k == 2 and not module.training
 
 

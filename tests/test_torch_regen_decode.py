@@ -118,7 +118,7 @@ def test_bf16_decode_obeys_the_restrictive_mask(models):
 
 
 def test_decode_dataset_on_the_artifact_matches_jax():
-    module = load_regenerator(ARTIFACT)
+    module = load_regenerator(ARTIFACT, device="cpu")
     params = load_jax_checkpoint(ARTIFACT)["params"]
     n = module.num_items
     seqs = markov_sequences(num_users=32, num_items=n, min_len=1, max_len=60, seed=11)

@@ -165,7 +165,7 @@ def test_gumbel_noise_comes_from_the_callers_generator():
 @pytest.fixture(scope="module")
 def artifact():
     params = load_jax_checkpoint(ARTIFACT)["params"]
-    return params, load_regenerator(ARTIFACT)
+    return params, load_regenerator(ARTIFACT, device="cpu")
 
 
 def test_artifact_loads_at_full_width(artifact):
@@ -173,6 +173,14 @@ def test_artifact_loads_at_full_width(artifact):
     assert module.widths() == {"num_items": 11925, "k": 5, "embed_dim": 64, "num_heads": 2,
                                "num_layers": 2, "ffn_dim": 256, "max_len": 64}
     assert not module.training
+
+
+def test_load_regenerator_defaults_to_the_card(monkeypatch):
+    """Like every entry point of the port, the loader goes to the card
+    unless the caller asks for the CPU, and raises without CUDA."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        load_regenerator(ARTIFACT)
 
 
 def test_artifact_logits_match_jax(artifact):

@@ -1,10 +1,11 @@
 """The model zoo end to end on the CPU: ``Trainer(device="cpu").fit()`` of
-GRU4Rec, FMLP, CL4SRec and CL4SRec2 on a small synthetic set, 2 epochs
-(CL4SRec's 3: its contrastive term is noisy over few steps): a falling
-loss, finite metrics that beat random, their bf16 steps, the CLI
-``python -m dr4sr_tpu_torch.run --cpu -m <model>`` with the shipped
-configs, FMLP's prefix rows in the trainer, and the refusal of
-``model.context_parallel > 1``."""
+GRU4Rec, FMLP, CL4SRec, CL4SRec2, GNN, SGL, SimGCL, NCL and ICLRec on a
+small synthetic set, 2 epochs (CL4SRec's 3: its contrastive term is noisy
+over few steps): a falling loss, finite metrics that beat random, their
+bf16 steps, the CLI ``python -m dr4sr_tpu_torch.run --cpu -m <model>``
+with the shipped configs, FMLP's prefix rows in the trainer, NCL's and
+ICLRec's state refreshed once an epoch, and the refusals of
+``model.context_parallel > 1`` and of DR4SR+'s ``is_meta``."""
 
 import json
 import os
@@ -18,10 +19,13 @@ from torch_one_thread import one_torch_thread  # noqa: F401  (autouse)
 
 from dr4sr_tpu_torch.data.dataset import prepare_datasets
 from dr4sr_tpu_torch.data.synthetic import synthetic_config, write_synthetic_dataset
+from dr4sr_tpu_torch.train import trainer as trainer_module
 from dr4sr_tpu_torch.train.trainer import Trainer
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-MODELS = ("GRU4Rec", "FMLP", "CL4SRec", "CL4SRec2")
+SEQUENTIAL = ("GRU4Rec", "FMLP", "CL4SRec", "CL4SRec2")
+GRAPH_AND_INTENT = ("GNN", "SGL", "SimGCL", "NCL", "ICLRec")
+MODELS = SEQUENTIAL + GRAPH_AND_INTENT
 NUM_ITEMS = 60
 
 
@@ -35,7 +39,8 @@ def root(tmp_path_factory):
 def _config(model, **train):
     cfg = synthetic_config(model_name=model, max_seq_len=20,
                            train_file="_ori" if model == "CL4SRec2" else "")
-    cfg["model"].update(embed_dim=32, hidden_size=64, dropout_rate=0.1)
+    cfg["model"].update(embed_dim=32, hidden_size=64, dropout_rate=0.1, num_clusters=8,
+                        num_intent_clusters=4)
     cfg["train"].update({"epochs": 2, "batch_size": 32, **train})
     return cfg
 
@@ -60,6 +65,7 @@ def test_bf16_steps(root, tmp_path, model):
     cfg = _config(model, precision="bf16")
     trainer = Trainer(cfg, prepare_datasets(cfg, root=root), workdir=str(tmp_path), device="cpu")
     trainer.init_state()
+    trainer.refresh_state(0)  # NCL's and ICLRec's state, as an epoch starts
     losses = [trainer.train_step(trainer.device_batch(b, is_train=True)).item()
               for b, _ in zip(trainer.train_batches(0), range(3))]
     assert np.isfinite(losses).all()
@@ -83,7 +89,7 @@ def test_fmlp_trains_on_prefix_rows(root):
                                   val["in_item_id"][np.arange(len(moved)), val["seqlen"] - 1])
 
 
-@pytest.mark.parametrize("model", MODELS)
+@pytest.mark.parametrize("model", SEQUENTIAL + ("GNN",))
 def test_cli_trains_one_epoch_on_the_cpu(root, tmp_path, model):
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run(
@@ -101,3 +107,38 @@ def test_context_parallel_is_refused(root):
     cfg["model"]["context_parallel"] = 2
     with pytest.raises(NotImplementedError, match="multi-GPU slice"):
         Trainer(cfg, prepare_datasets(cfg, root=root), device="cpu")
+
+
+@pytest.mark.parametrize("model", ["NCL", "ICLRec"])
+def test_state_is_refreshed_once_an_epoch(root, tmp_path, model, monkeypatch):
+    cfg = _config(model, epochs=3)
+    trainer = Trainer(cfg, prepare_datasets(cfg, root=root), workdir=str(tmp_path), device="cpu")
+    seen = []
+    refresh = trainer.model_class.refresh_state
+
+    def counted(tr, nepoch):
+        seen.append(nepoch)
+        return refresh(tr, nepoch)
+
+    monkeypatch.setattr(trainer.model_class, "refresh_state", staticmethod(counted))
+    trainer.fit()
+    assert seen == [0, 1, 2]
+    key = "proto_centroids" if model == "NCL" else "intent_centroids"
+    assert torch.isfinite(trainer.batch_extras[key]).all()
+
+
+def test_only_the_bilevel_model_is_refused(root):
+    assert trainer_module._UNPORTED_MODEL_FLAGS == ("is_meta",)
+
+    class Meta:
+        is_meta = True
+
+    cfg = _config("GRU4Rec")
+    datasets = prepare_datasets(cfg, root=root)
+    original = trainer_module.get_model_class
+    trainer_module.get_model_class = lambda name: Meta
+    try:
+        with pytest.raises(NotImplementedError, match="is_meta"):
+            Trainer(cfg, datasets, device="cpu")
+    finally:
+        trainer_module.get_model_class = original

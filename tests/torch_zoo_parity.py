@@ -1,7 +1,7 @@
 """Helpers for the port's model-zoo parity tests: build a JAX model of the
-zoo, carry its weights into the port's module, and take the first train
-step's loss and gradients on both sides from the same negatives (dropout
-0)."""
+zoo, carry its weights into the port's module, take the first train step's
+loss and gradients on both sides from the same negatives (dropout 0), and
+reproduce the draws of a JAX augmentation as the port's ``Draws``."""
 
 import jax
 import jax.numpy as jnp
@@ -71,6 +71,31 @@ def assert_grads_match(module, jax_grads, atol):
     want = params_from_jax(jax_grads, module)
     for name, p in module.named_parameters():
         np.testing.assert_allclose(p.grad.numpy(), want[name].numpy(), atol=atol, err_msg=name)
+
+
+def jax_aug_draws(kind, key, seqlen, l, tao=0.2, beta=0.2):
+    """The port's draws for one call of JAX's ``augment(key, ..., kind)``."""
+    seqlen = jnp.asarray(seqlen)
+    b = seqlen.shape[0]
+    if kind == "item_random":
+        r_pick, key = jax.random.split(key)
+        kind = ("item_crop", "item_mask", "item_reorder")[int(jax.random.randint(r_pick, (), 0, 3))]
+
+    def start(k, sub_len):
+        return jax.random.randint(k, seqlen.shape, 0, jnp.maximum(seqlen - sub_len + 1, 1))
+
+    s = u = None
+    if kind == "item_crop":
+        s = start(key, jnp.maximum(1, (tao * seqlen).astype(jnp.int32)))
+    elif kind == "item_mask":
+        u = jax.random.uniform(key, (b, l))
+    else:
+        r_start, r_perm = jax.random.split(key)
+        s = start(r_start, (beta * seqlen).astype(jnp.int32))
+        u = jax.random.uniform(r_perm, (b, l))
+    return {"kind": kind,
+            "start": None if s is None else torch.tensor(np.asarray(s)).long(),
+            "u": None if u is None else torch.tensor(np.asarray(u))}
 
 
 def assert_topk_match(got_items, got_scores, want_items, want_scores, atol):

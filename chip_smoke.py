@@ -61,7 +61,21 @@ Phases, in order; any failure raises and the script exits nonzero:
    validation pass (recall@20 above 5x random), with launch counts; the
    k-means of NCL's and ICLRec's refresh, Lloyd step by Lloyd step, card
    against CPU; timed steps, a few bf16 steps, the propagation's and the
-   k-means' device time, the refresh's wall time and a profile of 5 steps.
+   k-means' device time, the refresh's wall time and a profile of 5 steps;
+9. meta: on the same data, DR4SR+ (``MetaTrainer``, configs/metamodel.yaml's
+   meta keys with warm-up 0) around SASRec at the amazon-toys width: one
+   outer step's hypergradient and meta update, and the weighted steps'
+   gradients and losses, card against CPU (the same weights, batches,
+   negatives and Gumbel noise; dropout 0); ``fit()`` for 2 epochs (epoch 0
+   warm, epoch 1 weighted, outer steps every 30 steps) through both kernels,
+   with launch counts (none inside an outer step, which takes the plain
+   attention route), the weight statistics, moved meta parameters and
+   validation recall@20 above 5x random; timed weighted and outer steps and
+   their profiles (the plain attention's share of an outer step's device
+   time); around FMLP, the shipped sub-model, the same card-vs-CPU checks
+   and a few warm, weighted and outer steps (no attention); around GRU4Rec
+   one outer step card against CPU (cuDNN off: its RNN has no double
+   backward).
 
 It prints one ``{"kernels": [...]}`` line, then as its last line
 ``{"ok": true, "device": {...}}``. It imports nothing of JAX. Kernel times
@@ -69,7 +83,8 @@ are device time per call (:func:`device_ms`).
 
     python3 chip_smoke.py --controls
 
-runs only the card-vs-CPU gradient checks of phases 5, 6 and 7 (CL4SRec),
+runs only the card-vs-CPU gradient checks of phases 5, 6, 7 (CL4SRec) and 9
+(SASRec's weighted step),
 once with each of a few deliberate faults patched into the backward route,
 and prints whether the check caught each (a ``control {...}`` line per path
 and fault).
@@ -78,6 +93,7 @@ and fault).
 from __future__ import annotations
 
 import copy
+import itertools
 import json
 import os
 import re
@@ -134,6 +150,7 @@ from dr4sr_tpu_torch.regen.pipeline import (
 )
 from dr4sr_tpu_torch.serve import Recommender
 from dr4sr_tpu_torch.train.checkpoint import load_jax_checkpoint, load_regenerator
+from dr4sr_tpu_torch.train.meta_trainer import MetaTrainer
 from dr4sr_tpu_torch.train.trainer import Trainer
 
 # H100 SXM published peaks (NVIDIA data sheet): HBM3 bytes/s, and dense
@@ -291,6 +308,22 @@ GRAPH_ENCODES = {"GNN": (1, 1), "SGL": (1, 1), "SimGCL": (1, 1), "NCL": (1, 1),
 # lie within KMEANS_NEAR_TIE; the updated centroids within KMEANS_ATOL
 KMEANS_NEAR_TIE = 1e-4
 KMEANS_ATOL = 1e-5
+
+# phase 9, DR4SR+: configs/metamodel.yaml's meta keys, written out (the sub-
+# model's own config is phase 5's or 7's), with warm-up cut from 10 epochs
+# to 0 so that two epochs run one warm and one weighted
+META_MODEL = {"model": "MetaModel", "tau_min": 1.0}
+META_TRAIN = {"interval": 30, "meta_optimizer": "sgd", "meta_learning_rate": 1e-3,
+              "hpo_learning_rate": 1e-3, "meta_weight_decay": 1e-3, "warmup_epoch": 0}
+META_EPOCHS = 2
+# the hypergradient card vs CPU (same weights, batches, negatives and Gumbel
+# noise; dropout 0, TF32 off), each meta parameter's error over its largest
+# element; the meta parameters after the SGD step within HYPER_RTOL of the
+# step's largest change, plus META_ULPS f32 roundings of the parameter (an
+# update far below one ulp, as τ's at 10, rounds either way)
+HYPER_RTOL = 1e-4
+META_ULPS = 4
+META_TIMED = 10  # outer steps timed on fixed batches, and weighted steps 3x as many
 
 
 def log(msg: str) -> None:
@@ -1400,6 +1433,290 @@ def graph(card, workdir):
             {p: result[m]["attention_bwd_launches"] for p, m in paths.items()})
 
 
+def _meta_cfgs(workdir, sub_model, **sub_train):
+    """(MetaModel config, the sub-model's config) for phase 9: the sub-model's
+    as phase 5 (SASRec) or 7 writes it; the MetaModel config is the same with
+    META_MODEL and META_TRAIN over it."""
+    if sub_model == "SASRec":
+        sub = _train_cfg(workdir, epochs=META_EPOCHS, **sub_train)
+    else:
+        sub = _zoo_cfg(workdir, sub_model, epochs=META_EPOCHS, **sub_train)
+    meta = copy.deepcopy(sub)
+    meta["model"] = {**META_MODEL, "sub_model": sub_model}
+    meta["train"].update(META_TRAIN)
+    return meta, sub
+
+
+def _meta_trainer(workdir, sub_model, device, dropout=None, **sub_train):
+    meta, sub = _meta_cfgs(workdir, sub_model, **sub_train)
+    if dropout is not None:
+        sub["model"]["dropout_rate"] = dropout
+    trainer = MetaTrainer(meta, prepare_datasets(meta, root=workdir), workdir=workdir,
+                          device=device, sub_config=sub)
+    trainer.init_state()
+    return trainer
+
+
+def _rel_errs(got, want):
+    """{name: max |got − want| over max |want|}, on the CPU."""
+    return {k: (got[k].detach().cpu() - w).abs().max().item()
+            / max(w.abs().max().item(), 1e-30) for k, w in want.items()}
+
+
+def meta_card_vs_cpu(sub_model, workdir, outer=True, weighted=True):
+    """The bilevel trainer around ``sub_model`` from the same initial weights,
+    dropout 0, with the same batches, negatives and Gumbel noise, card
+    against CPU: one outer step's hypergradient and the meta update after
+    it (``outer``), then the first weighted step's gradients and 3 weighted
+    Adam steps' losses (``weighted``; the keys of :func:`_parity`)."""
+    trainers = {d: _meta_trainer(workdir, sub_model, d, dropout=0.0) for d in ("cuda", "cpu")}
+    host = trainers["cpu"]
+    rng = np.random.default_rng(0)
+
+    def draws(batch):  # negatives, Gumbel noise
+        item = batch["item_id"]
+        return (torch.from_numpy(rng.integers(1, NUM_ITEMS, size=item.shape + (1,))),
+                torch.from_numpy(rng.gumbel(size=item.shape + (2,)).astype(np.float32)))
+
+    result = {}
+    if outer:
+        loader = host.train_data.get_loader(seed=4099)
+        vb, tb = loader.sample_batch(), loader.sample_batch()
+        (val_neg, _), (train_neg, noise) = draws(vb), draws(tb)
+        before = {k: v.detach().cpu().clone() for k, v in host.meta_params.items()}
+        hyper, after = {}, {}
+        for device, tr in trainers.items():
+            hyper[device] = {k: v.detach().cpu() for k, v in tr.outer_step(
+                tr.device_batch(vb, is_train=True), tr.device_batch(tb, is_train=True),
+                val_neg=val_neg.to(tr.device), train_neg=train_neg.to(tr.device),
+                noise=noise.to(tr.device)).items()}
+            after[device] = {k: v.detach().cpu() for k, v in tr.meta_params.items()}
+        meta_err, meta_bound = {}, {}
+        for k, want in after["cpu"].items():
+            meta_err[k] = (after["cuda"][k] - want).abs().max().item()
+            meta_bound[k] = (HYPER_RTOL * (want - before[k]).abs().max().item()
+                             + META_ULPS * 2.0**-24 * want.abs().max().item())
+        result.update(hyper_rel_err=_rel_errs(hyper["cuda"], hyper["cpu"]),
+                      hyper_absmax={k: v.abs().max().item() for k, v in hyper["cpu"].items()},
+                      hyper_rtol=HYPER_RTOL, meta_abs_err=meta_err, meta_bound=meta_bound)
+    if weighted:
+        steps = [(b, *draws(b)) for b, _ in zip(host.train_data.get_loader(seed=0), range(3))]
+        runs = {}
+        for device, tr in trainers.items():
+            losses, grads = [], None
+            meta = {k: v.detach() for k, v in tr.meta_params.items()}
+            for batch, neg, noise in steps:
+                tr.optimizer.zero_grad(set_to_none=True)
+                loss = tr._weighted_loss(tr.device_batch(batch, is_train=True), meta,
+                                         neg_id=neg.to(tr.device), noise=noise.to(tr.device))
+                loss.backward()
+                if grads is None:
+                    grads = {k: p.grad.detach().cpu()
+                             for k, p in tr.rec.module.named_parameters()}
+                tr.optimizer.step()
+                losses.append(loss.item())
+            runs[device] = (losses, grads)
+        result.update(_parity(runs))
+    return result
+
+
+def check_meta_card_vs_cpu(sub_model, parity):
+    if "grad_max_rel_err" in parity:
+        check_card_vs_cpu(parity)
+    worst = max(parity["hyper_rel_err"].values())
+    over = [k for k, err in parity["meta_abs_err"].items() if err > parity["meta_bound"][k]]
+    if worst > HYPER_RTOL or over:
+        raise AssertionError(f"{sub_model} outer step card vs CPU: hypergradient {worst} of the "
+                             f"largest (rtol {HYPER_RTOL}); meta parameters over their bound: "
+                             f"{over}: {parity}")
+
+
+def _outer_step_counted(trainer):
+    """Wrap ``trainer.outer_step`` to record the attention launches inside
+    each call, with the step counter it fired at."""
+    inner, calls = trainer.outer_step, []
+
+    def counted(*args, **kwargs):
+        fwd, bwd = flash_attention_fwd.launches, flash_attention_bwd.launches
+        out = inner(*args, **kwargs)
+        calls.append((flash_attention_fwd.launches - fwd, flash_attention_bwd.launches - bwd,
+                      trainer.step_counter))
+        return out
+
+    trainer.outer_step = counted
+    return calls
+
+
+def _attention_shaped(shape, b, h, lq, dh):
+    """A tensor of the plain attention's own: [B, H, ·, ·] or [B·H, ·, ·]
+    with both trailing dims in {L, Dh} (q, k, v, scores, probabilities)."""
+    return (len(shape) >= 3 and int(np.prod(shape[:-2])) == b * h
+            and {shape[-2], shape[-1]} <= {lq, dh})
+
+
+def profiled_attention_share(label, fn, b, h, lq, dh):
+    """``fn()`` under ``torch.profiler`` with input shapes: the profile as
+    :func:`profiled` logs it, and the share of the device time launched by
+    ops on attention-shaped tensors (the plain route's products, masks and
+    softmax, forward and every derivative). Returns (device µs, wall µs,
+    attention µs)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    log(f"profile: {label}")
+    device_us = _log_profile(prof, wall_us)
+    attn_us = sum(e.self_device_time_total
+                  for e in prof.key_averages(group_by_input_shape=True)
+                  if e.device_type != torch.autograd.DeviceType.CUDA
+                  and any(isinstance(s, (list, tuple)) and _attention_shaped(s, b, h, lq, dh)
+                          for s in (e.input_shapes or [])))
+    return device_us, wall_us, attn_us
+
+
+def _timed(fn, n):
+    """ms of ``n`` calls of ``fn``, each to its end on the card, after one
+    warm-up call: (p50, p90)."""
+    fn()
+    torch.cuda.synchronize()
+    lat = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        lat.append((time.perf_counter() - t0) * 1e3)
+    return float(np.percentile(lat, 50)), float(np.percentile(lat, 90))
+
+
+def meta_sasrec(workdir, card, result):
+    """The bounded ``MetaTrainer.fit()`` around SASRec through the kernels
+    (epoch 0 warm, epoch 1 weighted), counted, into ``result``; then timed
+    weighted and outer steps and their profiles."""
+    trainer = _meta_trainer(workdir, "SASRec", "cuda")
+    layers = trainer.config["model"]["layer_num"]
+    steps_per_epoch = len(trainer.train_data.get_loader())
+    eval_batches = len(trainer.val_data.get_loader())
+    meta0 = {k: v.detach().clone() for k, v in trainer.meta_params.items()}
+    calls = _outer_step_counted(trainer)
+    flash_attention_fwd.launches = 0
+    flash_attention_bwd.launches = 0
+    t0 = time.perf_counter()
+    val = trainer.fit()
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    fwd, bwd = flash_attention_fwd.launches, flash_attention_bwd.launches
+
+    steps = META_EPOCHS * steps_per_epoch
+    weighted_epochs = sum(e > META_TRAIN["warmup_epoch"] for e in range(META_EPOCHS))
+    interval = META_TRAIN["interval"]
+    want_outer = [(0, 0, c) for c in range(interval, steps + 1, interval)
+                  if c > (META_TRAIN["warmup_epoch"] + 1) * steps_per_epoch]
+    # every train step and each weighted epoch's probe encode once; the
+    # outer steps take the plain route; validation once an epoch
+    want = (layers * (steps + weighted_epochs + META_EPOCHS * eval_batches), layers * steps)
+    with open(f"{trainer.run_dir()}/metrics.jsonl") as f:
+        records = [json.loads(line) for line in f]
+    stats = {k: trainer.logged_metrics.get(k) for k in
+             ("weight_mean", "weight_std", "weight_frac_high", "weight_frac_low", "tau")}
+    moved = {k: (v.detach() - meta0[k]).abs().max().item()
+             for k, v in trainer.meta_params.items()}
+    result.update(steps=steps, steps_per_epoch=steps_per_epoch, eval_batches=eval_batches,
+                  fit_s=fit_s, attention_fwd_launches=fwd, attention_bwd_launches=bwd,
+                  want_launches=list(want), outer_steps=[list(c) for c in calls],
+                  want_outer_steps=[list(c) for c in want_outer],
+                  train_losses=[r["train_loss"] for r in records], val=val, weight_stats=stats,
+                  meta_moved=moved, card=card)
+    if (fwd, bwd) != want or calls != want_outer:
+        raise AssertionError(f"MetaModel(SASRec) launches: forward {fwd}, backward {bwd} (want "
+                             f"{want}); outer steps {calls} (want {want_outer})")
+    if not np.isfinite(result["train_losses"]).all() or len(records) != META_EPOCHS:
+        raise AssertionError(f"MetaModel(SASRec) losses: {result['train_losses']}")
+    if not all(v is not None and np.isfinite(v) for v in stats.values()):
+        raise AssertionError(f"MetaModel(SASRec) weight stats not logged or not finite: {stats}")
+    if not max(moved.values()) > 0:
+        raise AssertionError("MetaModel(SASRec): the outer steps did not move the meta parameters")
+    random_recall = 20 / (NUM_ITEMS - 1)
+    if not val["recall@20"] > 5 * random_recall:
+        raise AssertionError(f"MetaModel(SASRec): validation recall@20 {val['recall@20']} is "
+                             f"not above 5 x random ({random_recall})")
+
+    # timed (uncounted): weighted steps and outer steps on fixed batches
+    del trainer.outer_step  # the class's own again
+    loader = trainer.train_data.get_loader(seed=4099)
+    vb, tb = (trainer.device_batch(loader.sample_batch(), is_train=True) for _ in range(2))
+    batches = [trainer.device_batch(b, is_train=True)
+               for b, _ in zip(trainer.train_data.get_loader(seed=5), range(5))]
+    cycle = itertools.cycle(batches)
+    weighted = lambda: trainer.weighted_train_step(next(cycle))  # noqa: E731
+    outer = lambda: trainer.outer_step(vb, tb)  # noqa: E731
+    w50, w90 = _timed(weighted, 3 * META_TIMED)
+    o50, o90 = _timed(outer, META_TIMED)
+    result.update(weighted_step_ms_p50=w50, weighted_step_ms_p90=w90,
+                  outer_step_ms_p50=o50, outer_step_ms_p90=o90, timed_outer_steps=META_TIMED,
+                  timed_weighted_steps=3 * META_TIMED)
+    w_dev, w_wall = profiled("5 weighted SASRec steps", lambda: [weighted() for _ in range(5)])
+    h, dh = CONFIG["model"]["head_num"], CONFIG["model"]["embed_dim"] // CONFIG["model"]["head_num"]
+    o_dev, o_wall, attn = profiled_attention_share(
+        "one outer step (SASRec)", outer, BATCH, h, CONFIG["data"]["max_seq_len"], dh)
+    result.update(weighted_device_ms=w_dev / 5e3, weighted_busy_share=w_dev / w_wall,
+                  outer_device_ms=o_dev / 1e3, outer_busy_share=o_dev / o_wall,
+                  outer_plain_attention_device_ms=attn / 1e3,
+                  outer_plain_attention_share=attn / o_dev if o_dev else None)
+    return fwd, bwd
+
+
+def meta_fmlp(workdir, card, result):
+    """A few warm, weighted and outer steps and a probe of MetaModel around
+    FMLP (the shipped sub-model) on the card, counted: no attention."""
+    trainer = _meta_trainer(workdir, "FMLP", "cuda")
+    batches = [trainer.device_batch(b, is_train=True)
+               for b, _ in zip(trainer.train_data.get_loader(seed=0), range(6))]
+    loader = trainer.train_data.get_loader(seed=4099)
+    flash_attention_fwd.launches = 0
+    flash_attention_bwd.launches = 0
+    warm = [trainer.train_step(b) for b in batches[:3]]
+    weighted = [trainer.weighted_train_step(b) for b in batches[3:]]
+    hyper = [trainer.outer_step(*(trainer.device_batch(loader.sample_batch(), is_train=True)
+                                  for _ in range(2))) for _ in range(2)]
+    stats = trainer.weight_stats(trainer.device_batch(loader.sample_batch(), is_train=True))
+    torch.cuda.synchronize()
+    fwd, bwd = flash_attention_fwd.launches, flash_attention_bwd.launches
+    losses = torch.stack(warm + weighted).tolist()
+    result.update(losses=losses, attention_fwd_launches=fwd, attention_bwd_launches=bwd,
+                  hyper_finite=all(bool(torch.isfinite(v).all()) for h in hyper
+                                   for v in h.values()),
+                  weight_stats={k: float(v) for k, v in stats.items()}, card=card)
+    if (fwd, bwd) != (0, 0) or not np.isfinite(losses).all() or not result["hyper_finite"]:
+        raise AssertionError(f"MetaModel(FMLP): {result}")
+    return fwd, bwd
+
+
+def meta(card, workdir):
+    """Phase 9 on phase 6's dataset: card vs CPU around SASRec and FMLP
+    (outer step and weighted steps) and GRU4Rec (outer step, cuDNN off);
+    the bounded fit around SASRec; FMLP's steps. The ``meta`` line holds what
+    each part read, also when one of them fails."""
+    result = {"card": card}
+    try:
+        for sub_model in ("SASRec", "FMLP", "GRU4Rec"):
+            result[sub_model] = {"card_vs_cpu": meta_card_vs_cpu(
+                sub_model, workdir, weighted=sub_model != "GRU4Rec")}
+            check_meta_card_vs_cpu(sub_model, result[sub_model]["card_vs_cpu"])
+        if not torch.backends.cudnn.enabled:
+            raise AssertionError("cuDNN was left off after an outer step")
+        sasrec = meta_sasrec(workdir, card, result["SASRec"])
+        fmlp = meta_fmlp(workdir, card, result["FMLP"])
+    finally:
+        log(f"meta {json.dumps(result)}")
+    return ({"meta_sasrec": sasrec[0], "meta_fmlp": fmlp[0]},
+            {"meta_sasrec": sasrec[1], "meta_fmlp": fmlp[1]})
+
+
 # deliberate faults in the backward route, each of which the card-vs-CPU
 # check should catch: the key-padding mask dropped, the causal mask dropped,
 # and the row log-sum-exp off by 1e-3 (every p scaled by e^-0.001)
@@ -1415,12 +1732,13 @@ FAULTS = {
 
 def controls() -> int:
     """``--controls``: the card-vs-CPU checks of SASRec, of the
-    regenerator and of CL4SRec with each of ``FAULTS`` patched into
-    ``FlashAttention.backward``'s call of the backward kernels. On the
-    regenerator's path the key-padding mask matters (left-aligned sources
-    under non-causal cross-attention), so there all three must be caught.
-    CL4SRec's views are right-padded and causal as SASRec's rows are, so a
-    dropped key-padding mask may be invisible there too."""
+    regenerator, of CL4SRec and of the bilevel trainer's weighted SASRec
+    step with each of ``FAULTS`` patched into ``FlashAttention.backward``'s
+    call of the backward kernels. On the regenerator's path the key-padding
+    mask matters (left-aligned sources under non-causal cross-attention), so
+    there all three must be caught. CL4SRec's views and the weighted step's
+    rows are right-padded and causal as SASRec's rows are, so a dropped
+    key-padding mask may be invisible there too."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     with tempfile.TemporaryDirectory(prefix="chip_smoke_controls_") as workdir:
@@ -1428,7 +1746,8 @@ def controls() -> int:
         pairs = mine(markov_sequences(num_users=NUM_USERS, num_items=NUM_ITEMS, seed=0))[1]
         for path, run in (("sasrec", lambda: card_vs_cpu(datasets, workdir)),
                           ("regen", lambda: regen_card_vs_cpu(pairs)),
-                          ("cl4srec", lambda: zoo_card_vs_cpu("CL4SRec", workdir))):
+                          ("cl4srec", lambda: zoo_card_vs_cpu("CL4SRec", workdir)),
+                          ("meta", lambda: meta_card_vs_cpu("SASRec", workdir, outer=False))):
             log(f"control {json.dumps({'path': path, 'fault': None, **run()})}")
             for name, fault in FAULTS.items():
                 # the wrapper adds to ``attention.flash_attention_bwd.launches``: the fault's
@@ -1549,6 +1868,8 @@ def main() -> int:
         log(f"elapsed after phase 7: {time.perf_counter() - start:.1f}s")
         graph_fwd_launches, graph_bwd_launches = graph(card, workdir)
         log(f"elapsed after phase 8: {time.perf_counter() - start:.1f}s")
+        meta_fwd_launches, meta_bwd_launches = meta(card, workdir)
+        log(f"elapsed after phase 9: {time.perf_counter() - start:.1f}s")
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = [{
@@ -1559,7 +1880,7 @@ def main() -> int:
         "launches": train_fwd_launches,
         "launches_by_path": {"serve": serve_launches, "train": train_fwd_launches,
                              **regen_fwd_launches, **zoo_fwd_launches,
-                             **graph_fwd_launches},
+                             **graph_fwd_launches, **meta_fwd_launches},
         **{key: fwd_cases[0][key] for key in keys},
         "sass_hmma": hmma["flash_attention_fwd"],
         "cases": fwd_cases,
@@ -1571,7 +1892,7 @@ def main() -> int:
         "launches": train_bwd_launches,
         "launches_by_path": {"serve": serve_bwd_launches, "train": train_bwd_launches,
                              **regen_bwd_launches, **zoo_bwd_launches,
-                             **graph_bwd_launches},
+                             **graph_bwd_launches, **meta_bwd_launches},
         **{key: bwd_cases[0][key] for key in keys},
         "sass_hmma": hmma["flash_attention_bwd"],
         "cases": bwd_cases,

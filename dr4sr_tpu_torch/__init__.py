@@ -8,8 +8,10 @@ with ``nvcc`` at first use.
 
 Ported so far: serving (``serve.Recommender``) and training
 (``train.trainer.Trainer.fit``, ``python -m dr4sr_tpu_torch.run``) of SASRec
-and the sequential zoo (GRU4Rec, FMLP, CL4SRec, CL4SRec2), with the
-flash-attention forward and backward kernels; every dataset class
+and the model zoo (GRU4Rec, FMLP, CL4SRec, CL4SRec2, GNN, SGL, SimGCL, NCL,
+ICLRec), with the flash-attention forward and backward kernels; DR4SR+'s
+bilevel training around them (``train.meta_trainer.MetaTrainer``, which
+``quickstart.make_trainer`` picks for ``MetaModel``); every dataset class
 (``general`` and the ablation classes); the regeneration pipeline
 (``regen/``: mining, pretraining the regenerator, hybrid decode,
 ``train_regen``; CLIs under ``scripts/``).

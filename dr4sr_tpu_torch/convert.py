@@ -18,7 +18,7 @@ exactly the module's keys at its shapes, or the conversion raises.
 from __future__ import annotations
 
 import re
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Mapping, Tuple
 
 import numpy as np
 import torch
@@ -95,3 +95,12 @@ def generator_params_from_jax(params: Mapping[str, Any], module: nn.Module) -> D
     ``condition_encoder/condition_layer/dense_i`` transposed, embeddings
     as they are."""
     return params_from_jax(params, module)
+
+
+def meta_params_from_jax(meta_params: Mapping[str, Any],
+                         module: nn.Module) -> Tuple[Dict[str, torch.Tensor], float]:
+    """The bilevel trainer's meta parameters from the JAX ``MetaTrainer``'s
+    ``{"mlp": {dense_i: {kernel, bias}}, "tau": ()}``: the meta MLP's
+    state_dict (``module``, a ``modules.layers.MLP``; kernels transposed)
+    and τ as a float."""
+    return params_from_jax(meta_params["mlp"], module), float(np.asarray(meta_params["tau"]))

@@ -14,7 +14,7 @@ domain_id, index (, user_hist)`` plus ``valid``.
 
 from __future__ import annotations
 
-from typing import Dict, Iterator
+from typing import Dict, Iterator, Optional
 
 import numpy as np
 
@@ -71,3 +71,16 @@ class BatchIterator:
         if rows.user_hist is not None:
             batch["user_hist"] = rows.user_hist[idx]
         return batch
+
+    def sample_batch(self, batch_size: Optional[int] = None) -> Batch:
+        """One batch of rows drawn with replacement from the iterator's own
+        generator (the bilevel outer loop's val-proxy and train batches, and
+        its weight-statistics probe), padded and flagged as ``__iter__``
+        pads a last batch."""
+        bs = batch_size or self.batch_size
+        n = len(self.rows)
+        idx = self._rng.integers(0, n, size=min(bs, n))
+        valid_count = len(idx)
+        if self.pad_to_full and valid_count < bs:
+            idx = np.concatenate([idx, np.zeros(bs - valid_count, dtype=idx.dtype)])
+        return self._make_batch(idx, valid_count)

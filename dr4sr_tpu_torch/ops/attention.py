@@ -23,10 +23,17 @@
 * :class:`FlashAttention` — the ``autograd.Function`` tying the two, as
   ``_flash_diff`` ties the Pallas kernels: it saves q, k, v, o, the mask and
   the forward's row log-sum-exp (no [B, H, L, L] residual). CPU tensors take
-  the plain halves, CUDA tensors the kernels.
+  the plain halves, CUDA tensors the kernels. Its backward is once
+  differentiable: a backward with ``create_graph=True`` (for a second
+  derivative, a Hessian-vector product) raises, where it would otherwise
+  take the kernels' gradients as constants.
 * :func:`multihead_attention` — the dispatcher: a CPU tensor goes to
   :func:`mha_reference` (plain autograd), a CUDA tensor to
   :class:`FlashAttention`, or the call raises.
+* :func:`plain_attention` — a scoped context inside which a CUDA tensor also
+  goes to :func:`mha_reference`, whose autograd differentiates twice: the
+  bilevel trainer's outer step enters it, as the JAX package's enters
+  ``reference_attention()``.
 
 Layout is the JAX package's: q [B, H, Lq, Dh], k/v [B, H, Lk, Dh], mask
 [B, Lk].
@@ -34,6 +41,8 @@ Layout is the JAX package's: q [B, H, Lq, Dh], k/v [B, H, Lk, Dh], mask
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import ctypes
 import functools
 from typing import Optional, Tuple
@@ -286,6 +295,17 @@ class FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, do):
+        # the kernels' gradients have no autograd graph: a backward that
+        # builds one (create_graph=True, for a second derivative) would take
+        # them as constants and drop attention's second-order terms. So it
+        # raises. (``once_differentiable`` would not: the engine prunes its
+        # error node from a Hessian-vector product, whose inputs it does not
+        # reach, and the terms vanish silently.)
+        if torch.is_grad_enabled():
+            raise RuntimeError(
+                "FlashAttention's backward is once differentiable: a second derivative "
+                "(create_graph=True) must run attention inside "
+                "dr4sr_tpu_torch.ops.attention.plain_attention()")
         q, k, v, o, key_padding_mask, lse = ctx.saved_tensors
         # the incoming gradient may be a transposed view (layers.py reshapes
         # the output before out_proj) or, under autocast, another dtype
@@ -297,6 +317,23 @@ class FlashAttention(torch.autograd.Function):
         return (*grads, None, None)
 
 
+_PLAIN = contextvars.ContextVar("dr4sr_torch_plain_attention", default=False)
+
+
+@contextlib.contextmanager
+def plain_attention():
+    """Inside this context :func:`multihead_attention` sends CUDA tensors to
+    :func:`mha_reference` too, so that second derivatives (the
+    hypergradient's Hessian-vector products) run through plain autograd.
+    The routing before the context is restored on exit, also after an
+    exception."""
+    token = _PLAIN.set(True)
+    try:
+        yield
+    finally:
+        _PLAIN.reset(token)
+
+
 def multihead_attention(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -304,8 +341,9 @@ def multihead_attention(
     key_padding_mask: Optional[torch.Tensor] = None,
     causal: bool = True,
 ) -> torch.Tensor:
-    """CPU tensors → :func:`mha_reference`; CUDA tensors → the kernels."""
-    if q.device.type == "cpu":
+    """CPU tensors, and any tensor inside :func:`plain_attention` →
+    :func:`mha_reference`; CUDA tensors → the kernels."""
+    if q.device.type == "cpu" or _PLAIN.get():
         return mha_reference(q, k, v, key_padding_mask, causal)
     if q.device.type == "cuda":
         return FlashAttention.apply(q, k, v, key_padding_mask, causal)

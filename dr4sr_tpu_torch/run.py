@@ -6,10 +6,11 @@ come with the multi-GPU slice):
     python -m dr4sr_tpu_torch.run -m SASRec -d amazon-toys [--root dataset]
         [--train-file _ori] [--epochs N] [--cpu] [--set section.key=value ...]
 
-``-m`` is SASRec, GRU4Rec, FMLP, CL4SRec, CL4SRec2, GNN, SGL, SimGCL, NCL or
-ICLRec (DR4SR+'s ``MetaModel`` is refused). It runs on the card
-unless ``--cpu`` asks for the CPU. Configs are read from ``configs/``
-(PyYAML).
+``-m`` is SASRec, GRU4Rec, FMLP, CL4SRec, CL4SRec2, GNN, SGL, SimGCL, NCL,
+ICLRec or MetaModel (DR4SR+, around ``model.sub_model``: e.g.
+``-m MetaModel --set model.sub_model=SASRec``; ``--set`` and ``--epochs``
+reach the sub-model's config too). It runs on the card unless ``--cpu``
+asks for the CPU. Configs are read from ``configs/`` (PyYAML).
 """
 
 from __future__ import annotations
@@ -37,21 +38,27 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, float]:
 
     from dr4sr_tpu_torch.config import load_config
     from dr4sr_tpu_torch.data.dataset import prepare_datasets
-    from dr4sr_tpu_torch.train.trainer import Trainer
+    from dr4sr_tpu_torch.quickstart import make_trainer
 
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(message)s")
     config = load_config(args.model, args.dataset)
     if args.train_file is not None:
         config["data"]["train_file"] = args.train_file
+    # the explicit overrides, kept so that MetaModel's trainer applies them
+    # to the sub-model's freshly loaded config too
+    cli: Dict[str, Dict] = {}
     if args.epochs is not None:
-        config["train"]["epochs"] = args.epochs
+        cli.setdefault("train", {})["epochs"] = args.epochs
     for ov in args.overrides:
         key, _, value = ov.partition("=")
         section, _, name = key.partition(".")
-        config.setdefault(section, {})[name] = yaml.safe_load(value)
+        cli.setdefault(section, {})[name] = yaml.safe_load(value)
+    for section, kv in cli.items():
+        config.setdefault(section, {}).update(kv)
+    config["_cli_overrides"] = cli
 
     datasets = prepare_datasets(config, root=args.root)
-    trainer = Trainer(config, datasets, device="cpu" if args.cpu else "cuda")
+    trainer = make_trainer(config, datasets, device="cpu" if args.cpu else "cuda")
     trainer.fit()
     out = trainer.evaluate()
     # the validation selection score, so sweeps never select on test

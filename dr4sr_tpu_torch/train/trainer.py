@@ -30,9 +30,11 @@ the loss; ``refresh_state`` refits per-epoch state (NCL's prototypes,
 ICLRec's intents) into ``batch_extras`` at the start of every epoch
 (:meth:`Trainer.refresh_state`).
 
-Not ported yet, and refused with a clear error: the bilevel trainer
-(``is_meta``: DR4SR+), ``model.context_parallel > 1`` (the multi-GPU
-slice), ``train.steps_per_dispatch > 1`` (a later CUDA-graph PR),
+DR4SR+ (``MetaModel``, ``is_meta``) trains under the subclass
+``train.meta_trainer.MetaTrainer``, which ``quickstart.make_trainer`` picks;
+a plain ``Trainer`` refuses it. Not ported yet, and refused with a clear
+error: ``model.context_parallel > 1`` (the multi-GPU slice),
+``train.steps_per_dispatch > 1`` (a later CUDA-graph PR),
 ``train.tensorboard_dir`` and ``train.profile_epoch``.
 """
 
@@ -63,8 +65,6 @@ from dr4sr_tpu_torch.train.checkpoint import load_checkpoint
 
 logger = logging.getLogger("dr4sr_tpu_torch")
 
-# model-class flags whose code paths this package has not ported yet
-_UNPORTED_MODEL_FLAGS = ("is_meta",)
 # CL4SRec2's views read the original train file with this seed offset
 _ORIGINAL_LOADER_SEED = 7919
 _UNPORTED_TRAIN_KEYS = ("tensorboard_dir", "profile_epoch")
@@ -157,11 +157,11 @@ class Trainer:
 
         self.model_name = config["model"]["model"]
         self.model_class = get_model_class(self.model_name)
-        for flag in _UNPORTED_MODEL_FLAGS:
-            if getattr(self.model_class, flag, None):
-                raise NotImplementedError(
-                    f"model {self.model_name!r} needs '{flag}', which dr4sr_tpu_torch does "
-                    f"not port yet (DR4SR+ comes in a later slice); use the JAX package")
+        if getattr(self.model_class, "is_meta", False):
+            raise ValueError(
+                f"model {self.model_name!r} is the bilevel (DR4SR+) wrapper: train it with "
+                f"dr4sr_tpu_torch.train.meta_trainer.MetaTrainer, which "
+                f"dr4sr_tpu_torch.quickstart.make_trainer picks for it")
         cp = int(config["model"].get("context_parallel", 1))
         if cp > 1:
             raise NotImplementedError(

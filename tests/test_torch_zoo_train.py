@@ -4,8 +4,9 @@ small synthetic set, 2 epochs (CL4SRec's 3: its contrastive term is noisy
 over few steps): a falling loss, finite metrics that beat random, their
 bf16 steps, the CLI ``python -m dr4sr_tpu_torch.run --cpu -m <model>``
 with the shipped configs, FMLP's prefix rows in the trainer, NCL's and
-ICLRec's state refreshed once an epoch, and the refusals of
-``model.context_parallel > 1`` and of DR4SR+'s ``is_meta``."""
+ICLRec's state refreshed once an epoch, the refusal of
+``model.context_parallel > 1``, and DR4SR+'s ``MetaModel`` refused by a
+plain ``Trainer`` and given its own by ``make_trainer``."""
 
 import json
 import os
@@ -19,7 +20,6 @@ from torch_one_thread import one_torch_thread  # noqa: F401  (autouse)
 
 from dr4sr_tpu_torch.data.dataset import prepare_datasets
 from dr4sr_tpu_torch.data.synthetic import synthetic_config, write_synthetic_dataset
-from dr4sr_tpu_torch.train import trainer as trainer_module
 from dr4sr_tpu_torch.train.trainer import Trainer
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -128,17 +128,17 @@ def test_state_is_refreshed_once_an_epoch(root, tmp_path, model, monkeypatch):
 
 
 def test_only_the_bilevel_model_is_refused(root):
-    assert trainer_module._UNPORTED_MODEL_FLAGS == ("is_meta",)
+    """A plain ``Trainer`` refuses DR4SR+'s ``MetaModel`` and names the
+    bilevel trainer; ``make_trainer`` gives that trainer for it."""
+    from dr4sr_tpu_torch.quickstart import make_trainer
+    from dr4sr_tpu_torch.train.meta_trainer import MetaTrainer
 
-    class Meta:
-        is_meta = True
-
-    cfg = _config("GRU4Rec")
+    cfg = _config("MetaModel")
+    cfg["model"]["sub_model"] = "SASRec"
+    cfg["_cli_overrides"] = {"model": {"embed_dim": 32, "hidden_size": 64},
+                             "train": {"batch_size": 32}}
     datasets = prepare_datasets(cfg, root=root)
-    original = trainer_module.get_model_class
-    trainer_module.get_model_class = lambda name: Meta
-    try:
-        with pytest.raises(NotImplementedError, match="is_meta"):
-            Trainer(cfg, datasets, device="cpu")
-    finally:
-        trainer_module.get_model_class = original
+    with pytest.raises(ValueError, match="MetaTrainer"):
+        Trainer(cfg, datasets, device="cpu")
+    trainer = make_trainer(cfg, datasets, device="cpu")
+    assert isinstance(trainer, MetaTrainer) and trainer.config["model"]["model"] == "SASRec"

@@ -75,7 +75,19 @@ Phases, in order; any failure raises and the script exits nonzero:
    time); around FMLP, the shipped sub-model, the same card-vs-CPU checks
    and a few warm, weighted and outer steps (no attention); around GRU4Rec
    one outer step card against CPU (cuDNN off: its RNN has no double
-   backward).
+   backward);
+10. fused: on the same data, ``train.steps_per_dispatch = 16``, each group
+   of 16 steps one replay of a CUDA graph that holds both attention
+   kernels: a group through the graph against the same steps eagerly
+   (twice, from one state: parameters, Adam's moments, losses and both
+   generators' states) for SASRec, DR4SR+'s weighted steps around SASRec,
+   FMLP, bf16 SASRec and the rest of the zoo (CL4SRec and ICLRec with a
+   fixed ``augment_type``; ``item_random`` is refused); ``fit()`` of SASRec
+   for 3 epochs (graphs of 16 and 12 steps) and of DR4SR+ for 2 (groups
+   cut at every ``interval`` boundary, the outer steps eager between them)
+   with phase 5's and phase 9's launch counts; one profiled replay (32
+   forward and 32 backward kernels, one ``cudaGraphLaunch``); groups and
+   DR4SR+ intervals timed through the graphs and eagerly.
 
 It prints one ``{"kernels": [...]}`` line, then as its last line
 ``{"ok": true, "device": {...}}``. It imports nothing of JAX. Kernel times
@@ -86,8 +98,10 @@ are device time per call (:func:`device_ms`).
 runs only the card-vs-CPU gradient checks of phases 5, 6, 7 (CL4SRec) and 9
 (SASRec's weighted step),
 once with each of a few deliberate faults patched into the backward route,
-and prints whether the check caught each (a ``control {...}`` line per path
-and fault).
+and phase 10's graph-against-eager check of SASRec with the trainer's
+generator left unregistered and with a group's batches not copied into the
+graph's inputs; it prints whether the check caught each (a ``control
+{...}`` line per path and fault).
 """
 
 from __future__ import annotations
@@ -150,6 +164,7 @@ from dr4sr_tpu_torch.regen.pipeline import (
 )
 from dr4sr_tpu_torch.serve import Recommender
 from dr4sr_tpu_torch.train.checkpoint import load_jax_checkpoint, load_regenerator
+from dr4sr_tpu_torch.train.fused import StepGraphs
 from dr4sr_tpu_torch.train.meta_trainer import MetaTrainer
 from dr4sr_tpu_torch.train.trainer import Trainer
 
@@ -1717,6 +1732,403 @@ def meta(card, workdir):
             {"meta_sasrec": sasrec[1], "meta_fmlp": fmlp[1]})
 
 
+# phase 10, fused dispatch (train.steps_per_dispatch): phase 5's SASRec at
+# N = 16 on phase 6's data, 76 steps an epoch: groups of 16, 16, 16, 16, 12
+FUSED_N = 16
+# graph against eager from one state: where two eager runs agree to the bit
+# in every tensor, the graph must too; where they do not (atomic sums in the
+# graph models' propagation), each tensor of the graph's run may differ from
+# the nearer eager run by this share of its largest element (f32; bf16 by
+# phase 5's bf16 bound, one bf16 step), or by twice the two eager runs' own
+# spread where that is larger. Adam turns the atomics' noise in a near-zero
+# gradient (the key bias of qkv) into whole steps of the learning rate: two
+# eager GNN runs on an H100 put that bias 1.10e-5 of its largest element apart
+FUSED_RTOL = {torch.float32: 1e-5, torch.bfloat16: PATH_RTOL[torch.bfloat16]}
+FUSED_SPREADS = 2
+FUSED_TIMED_GROUPS = 12
+# the other models of the zoo, with their phase-7 and phase-8 configs; the
+# contrastive ones with a fixed augment_type (item_random picks each view's
+# augmentation on the host, and is refused)
+FUSED_OTHERS = ("GRU4Rec", "CL4SRec", "CL4SRec2", "GNN", "SGL", "SimGCL", "NCL", "ICLRec")
+FUSED_AUGMENT = "item_crop"
+# configurations refused at N > 1: item_random views pick on the host
+FUSED_REFUSED = ("CL4SRec", "ICLRec")
+
+
+def _fused_cfg(workdir, model, **train):
+    """Phase 5's, 7's or 8's config of ``model`` at N = FUSED_N."""
+    train = {"steps_per_dispatch": FUSED_N, **train}
+    if model == "SASRec":
+        return _train_cfg(workdir, **train)
+    cfg = _zoo_cfg(workdir, model, **train) if model in ZOO_MODELS else _graph_cfg(
+        workdir, model, **train)
+    if "augment_type" in cfg["model"]:
+        cfg["model"]["augment_type"] = FUSED_AUGMENT
+    return cfg
+
+
+def _state_of(trainer):
+    """Copies of what a group of steps moves: the parameters, the
+    optimizer's state, both generators and the step count."""
+    params = trainer.optimizer.param_groups[0]["params"]
+    return {"params": {k: p.detach().clone() for k, p in trainer.rec.module.named_parameters()},
+            "optimizer": {f"{i}.{k}": v.clone() for i, p in enumerate(params)
+                          for k, v in trainer.optimizer.state[p].items() if torch.is_tensor(v)},
+            "generator": trainer.generator.get_state(),
+            "cuda_rng": torch.cuda.get_rng_state(trainer.device), "step": trainer.step}
+
+
+@torch.no_grad()
+def _restore(trainer, state):
+    """``state`` back in place: a captured graph reads every tensor by address."""
+    for k, p in trainer.rec.module.named_parameters():
+        p.copy_(state["params"][k])
+    for i, p in enumerate(trainer.optimizer.param_groups[0]["params"]):
+        for k, v in trainer.optimizer.state[p].items():
+            if torch.is_tensor(v):
+                v.copy_(state["optimizer"][f"{i}.{k}"])
+    trainer.generator.set_state(state["generator"])
+    torch.cuda.set_rng_state(state["cuda_rng"], trainer.device)
+    trainer.step = state["step"]
+
+
+def _rel_err(got, want):
+    got, want = got.double(), want.double()
+    return (got - want).abs().max().item() / max(want.abs().max().item(), 1e-30)
+
+
+def fused_vs_eager(trainer, kind="train"):
+    """From one state, a group of FUSED_N steps through the CUDA graph
+    against the same steps eagerly, twice. The trainer first takes one
+    group through ``fused_steps`` (its eager warm-up, counted as the steps
+    it is) and, for a model with per-epoch state, refreshes it. Returns the
+    comparison: tensors equal to the bit, the others' errors beside the
+    eager spread, the generators' states, launches and capture ms."""
+    update = trainer._update if kind == "train" else trainer._weighted_update
+    step = trainer.train_step if kind == "train" else trainer.weighted_train_step
+    trainer.refresh_state(0)
+    batches = [b for b, _ in zip(trainer.train_batches(0), range(2 * FUSED_N))]
+    trainer.fused_steps(batches[:FUSED_N], kind, update)
+    group = batches[FUSED_N:]
+    start = _state_of(trainer)
+    runs, launches = {}, {}
+    for name in ("graph", "eager", "eager_again"):
+        _restore(trainer, start)
+        before = (flash_attention_fwd.launches, flash_attention_bwd.launches)
+        if name == "graph":
+            losses = trainer.fused_steps(group, kind, update).clone()
+        else:
+            losses = torch.stack([step(trainer.device_batch(b, is_train=True)) for b in group])
+        torch.cuda.synchronize()
+        launches[name] = (flash_attention_fwd.launches - before[0],
+                          flash_attention_bwd.launches - before[1])
+        state = _state_of(trainer)
+        runs[name] = {"losses": losses, **{f"param {k}": v for k, v in state["params"].items()},
+                      **{f"adam {k}": v for k, v in state["optimizer"].items()}}
+        runs[name]["generators"] = (state["generator"], state["cuda_rng"])
+        runs[name]["step"] = state["step"]
+    dtype = trainer.compute_dtype or torch.float32
+    keys = [k for k in runs["eager"] if k not in ("generators", "step")]
+    deterministic = all(torch.equal(runs["eager"][k], runs["eager_again"][k]) for k in keys)
+    bitwise, other, over = [], {}, []
+    for key in keys:
+        got, eager, again = runs["graph"][key], runs["eager"][key], runs["eager_again"][key]
+        if torch.equal(got, eager):
+            bitwise.append(key)
+        elif deterministic:
+            over.append(key)
+        else:
+            other[key] = {"err": min(_rel_err(got, eager), _rel_err(got, again)),
+                          "eager_spread": _rel_err(again, eager)}
+            if other[key]["err"] > max(FUSED_RTOL[dtype],
+                                       FUSED_SPREADS * other[key]["eager_spread"]):
+                over.append(key)
+    gens = [all(torch.equal(a, b) for a, b in zip(runs["graph"]["generators"],
+                                                  runs[name]["generators"]))
+            for name in ("eager", "eager_again")]
+    graphs = trainer._graphs.graphs
+    result = {"kind": kind, "steps": FUSED_N, "eager_deterministic": deterministic,
+              "tensors": len(keys), "bitwise": len(bitwise),
+              "not_bitwise": other, "over_bound": over, "rtol": FUSED_RTOL[dtype],
+              "losses_graph": runs["graph"]["losses"].tolist(),
+              "loss_max_abs_err": (runs["graph"]["losses"] - runs["eager"]["losses"]).abs()
+              .max().item(),
+              "generators_equal": all(gens), "step": [runs[n]["step"] for n in runs],
+              "launches": {k: list(v) for k, v in launches.items()},
+              "capture_ms": {f"{k}_{n}": g.capture_ms for (k, n), g in graphs.items()}}
+    return result
+
+
+def check_fused_vs_eager(model, result):
+    if result["over_bound"] or not result["generators_equal"] or len(
+            set(map(tuple, result["launches"].values()))) != 1 or len(set(result["step"])) != 1:
+        raise AssertionError(f"{model}: the graph's group against eager: {result}")
+
+
+def _profile(fn):
+    """(profiler, wall µs) of ``fn()`` to its end on the card."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    return prof, wall_us
+
+
+def _rows_named(events, name, device):
+    """Calls of the rows whose name holds ``name``: kernels on the device,
+    runtime calls on the host."""
+    want = torch.autograd.DeviceType.CUDA if device else torch.autograd.DeviceType.CPU
+    return sum(e.count for e in events if name in e.key and e.device_type == want)
+
+
+def fused_sasrec(workdir, card, result):
+    """SASRec at N = 16: graph against eager; ``fit()`` for 3 epochs and
+    ``evaluate()`` with launch counts; one profiled replay; groups timed
+    through the graph and eagerly."""
+    cfg = _fused_cfg(workdir, "SASRec")
+    datasets = prepare_datasets(cfg, root=workdir)
+    trainer = Trainer(cfg, datasets, workdir=workdir, device="cuda")
+    trainer.init_state()
+    result["graph_vs_eager"] = fused_vs_eager(trainer)
+    check_fused_vs_eager("SASRec", result["graph_vs_eager"])
+
+    layers = cfg["model"]["layer_num"]
+    epochs = cfg["train"]["epochs"]
+    steps_per_epoch = len(datasets[0].get_loader())
+    eval_batches = len(datasets[1].get_loader())
+    # its own directory: the metrics of earlier phases' SASRec runs stay apart
+    trainer = Trainer(cfg, datasets, workdir=os.path.join(workdir, "fused"), device="cuda")
+    flash_attention_fwd.launches = 0
+    flash_attention_bwd.launches = 0
+    t0 = time.perf_counter()
+    val = trainer.fit()
+    test = trainer.evaluate()
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    fwd, bwd = flash_attention_fwd.launches, flash_attention_bwd.launches
+    steps = epochs * steps_per_epoch
+    want = (layers * (steps + (epochs + 1) * eval_batches), layers * steps)
+    groups = sorted(n for _, n in trainer._graphs.graphs)
+    with open(f"{trainer.run_dir()}/metrics.jsonl") as f:
+        losses = [json.loads(line)["train_loss"] for line in f]
+    result.update(fit_s=fit_s, epoch_train_s=trainer.training_time / epochs,
+                  epoch_eval_s=trainer.inference_time / epochs,
+                  attention_fwd_launches=fwd, attention_bwd_launches=bwd,
+                  want_launches=list(want), graphs=groups,
+                  capture_ms={str(n): g.capture_ms for (_, n), g in trainer._graphs.graphs.items()},
+                  train_losses=losses, val=val, test=test, card=card)
+    if (fwd, bwd) != want:
+        raise AssertionError(f"fused SASRec launches: forward {fwd}, backward {bwd} (want {want})")
+    want_groups = sorted({FUSED_N, steps_per_epoch % FUSED_N} - {0, 1})
+    if groups != want_groups:
+        raise AssertionError(f"fused SASRec: graphs of {groups} steps (want {want_groups})")
+    if not (np.isfinite(losses).all() and losses[-1] < 2 * np.log(2)):
+        raise AssertionError(f"fused SASRec: the train loss did not fall below 2·ln 2: {losses}")
+    random_recall = 20 / (NUM_ITEMS - 1)
+    if not val["recall@20"] > 5 * random_recall:
+        raise AssertionError(f"fused SASRec: validation recall@20 {val['recall@20']} is not "
+                             f"above 5 x random ({random_recall})")
+
+    # one replay under the profiler: the kernels ran inside the graph
+    group = [b for b, _ in zip(trainer.train_batches(epochs), range(FUSED_N))]
+    trainer.train_group(group)  # the pinned buffers and the graph are warm
+    before = (flash_attention_fwd.launches, flash_attention_bwd.launches)
+    prof, wall_us = _profile(lambda: trainer.train_group(group))
+    counted = (flash_attention_fwd.launches - before[0], flash_attention_bwd.launches - before[1])
+    log(f"profile: one replay of {FUSED_N} SASRec steps")
+    device_us = _log_profile(prof, wall_us)
+    events = prof.key_averages()
+    replay = {"fwd_kernels": _rows_named(events, "flash_fwd_kernel", True),
+              "bwd_kernels": _rows_named(events, "flash_bwd_kernel", True),
+              "counted": list(counted),
+              "cudaGraphLaunch": _rows_named(events, "cudaGraphLaunch", False),
+              "cudaLaunchKernel": _rows_named(events, "cudaLaunchKernel", False),
+              "device_ms_a_step": device_us / FUSED_N / 1e3, "busy_share": device_us / wall_us}
+    result["profiled_replay"] = replay
+    # the steps launch nothing from the host: one graph, and before it the
+    # seed and offset fills of the two generators the graph reads
+    if ((replay["fwd_kernels"], replay["bwd_kernels"]) != (layers * FUSED_N,) * 2
+            or list(counted) != [layers * FUSED_N] * 2 or replay["cudaGraphLaunch"] != 1
+            or replay["cudaLaunchKernel"] > 2 * 2):
+        raise AssertionError(f"fused SASRec: one replay's kernels {replay}")
+    eager = Trainer(_train_cfg(workdir), datasets, workdir=workdir, device="cuda")
+    eager.init_state()
+    eager.train_step(eager.device_batch(group[0], is_train=True))
+    prof, eager_wall = _profile(lambda: [eager.train_step(eager.device_batch(b, is_train=True))
+                                         for b in group])
+    log(f"profile: {FUSED_N} eager SASRec steps")
+    eager_device = _log_profile(prof, eager_wall)
+    result["profiled_eager"] = {
+        "cudaLaunchKernel": _rows_named(prof.key_averages(), "cudaLaunchKernel", False),
+        "device_ms_a_step": eager_device / FUSED_N / 1e3, "busy_share": eager_device / eager_wall}
+
+    # timed (uncounted): groups of 16 from host batches to done, through the
+    # graph and, on a trainer at N = 1 (Adam not capturable), step by step,
+    # in turns
+    loaders = itertools.chain.from_iterable(trainer.train_batches(e) for e in range(2, 6))
+    timed = {"graph": [], "eager": []}
+    for _ in range(FUSED_TIMED_GROUPS):
+        group = list(itertools.islice(loaders, FUSED_N))
+        for name in ("graph", "eager"):
+            t0 = time.perf_counter()
+            if name == "graph":
+                trainer.train_group(group)
+            else:
+                for b in group:
+                    eager.train_step(eager.device_batch(b, is_train=True))
+            torch.cuda.synchronize()
+            timed[name].append((time.perf_counter() - t0) * 1e3 / FUSED_N)
+    for name, ms in timed.items():
+        result[f"{name}_step_ms_p50"] = float(np.percentile(ms, 50))
+        result[f"{name}_step_ms_p90"] = float(np.percentile(ms, 90))
+    result["timed_groups"] = FUSED_TIMED_GROUPS
+    # one more epoch each, its graphs and libraries warm: host batches to
+    # done, the host preparing a group while the card runs the one before
+    for name, tr in (("graph", trainer), ("eager", eager)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tr.training_epoch(epochs + 1)
+        result[f"{name}_warm_epoch_s"] = time.perf_counter() - t0
+    return fwd, bwd
+
+
+def fused_meta(workdir, card, result):
+    """DR4SR+ around SASRec at N = 16 (phase 9's configuration): a weighted
+    group through the graph against eager; ``fit()`` for 2 epochs with the
+    groups, the outer steps and the launches counted."""
+    trainer = _meta_trainer(workdir, "SASRec", "cuda", steps_per_dispatch=FUSED_N)
+    result["graph_vs_eager"] = fused_vs_eager(trainer, kind="weighted")
+    check_fused_vs_eager("MetaModel(SASRec)", result["graph_vs_eager"])
+
+    trainer = _meta_trainer(workdir, "SASRec", "cuda", steps_per_dispatch=FUSED_N)
+    layers = trainer.config["model"]["layer_num"]
+    steps_per_epoch = len(trainer.train_data.get_loader())
+    eval_batches = len(trainer.val_data.get_loader())
+    sizes, inner = [], trainer._group
+
+    def recorded(batches, step, kind, update):
+        sizes.append((kind, len(batches)))
+        return inner(batches, step, kind, update)
+
+    trainer._group = recorded
+    calls = _outer_step_counted(trainer)
+    flash_attention_fwd.launches = 0
+    flash_attention_bwd.launches = 0
+    t0 = time.perf_counter()
+    val = trainer.fit()
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    fwd, bwd = flash_attention_fwd.launches, flash_attention_bwd.launches
+    steps = META_EPOCHS * steps_per_epoch
+    weighted_epochs = sum(e > META_TRAIN["warmup_epoch"] for e in range(META_EPOCHS))
+    interval = META_TRAIN["interval"]
+    want = (layers * (steps + weighted_epochs + META_EPOCHS * eval_batches), layers * steps)
+    want_outer = [(0, 0, c) for c in range(interval, steps + 1, interval)
+                  if c > (META_TRAIN["warmup_epoch"] + 1) * steps_per_epoch]
+    # the JAX trainer's groups: warm epochs in groups of N, weighted ones
+    # cut at every interval boundary
+    want_sizes, counter = [], 0
+    for nepoch in range(META_EPOCHS):
+        warm, left = nepoch <= META_TRAIN["warmup_epoch"], steps_per_epoch
+        while left:
+            take = min(FUSED_N, left) if warm else min(FUSED_N, left,
+                                                      interval - counter % interval)
+            want_sizes.append(("train" if warm else "weighted", take))
+            left, counter = left - take, counter + take
+    result.update(fit_s=fit_s, attention_fwd_launches=fwd, attention_bwd_launches=bwd,
+                  want_launches=list(want), outer_steps=[list(c) for c in calls],
+                  want_outer_steps=[list(c) for c in want_outer],
+                  groups=[f"{k} {n}" for k, n in sizes],
+                  graphs=sorted(f"{k} {n}" for k, n in trainer._graphs.graphs),
+                  val_recall20=val["recall@20"], card=card)
+    if (fwd, bwd) != want or calls != want_outer or sizes != want_sizes:
+        raise AssertionError(f"fused MetaModel(SASRec): launches {fwd}, {bwd} (want {want}); "
+                             f"outer steps {calls} (want {want_outer}); groups {sizes} "
+                             f"(want {want_sizes})")
+    if not val["recall@20"] > 5 * 20 / (NUM_ITEMS - 1):
+        raise AssertionError(f"fused MetaModel(SASRec): recall@20 {val['recall@20']}")
+
+    # timed (uncounted): one interval, ``interval`` weighted steps from host
+    # batches and the outer step, to done: in groups of 16 and 14 through
+    # the graphs, and step by step on a trainer at N = 1, in turns
+    eager = _meta_trainer(workdir, "SASRec", "cuda")
+    loaders = {name: itertools.chain.from_iterable(tr.train_data.get_loader(seed=s)
+                                                   for s in itertools.count(7))
+               for name, tr in (("graph", trainer), ("eager", eager))}
+    timed = {"graph": [], "eager": []}
+    for _ in range(1 + META_TIMED // 2):
+        for name, tr in (("graph", trainer), ("eager", eager)):
+            batches = list(itertools.islice(loaders[name], interval))
+            tr.step_counter = 0
+            meta_loader = tr.train_data.get_loader(seed=4099)
+            t0 = time.perf_counter()
+            while batches:
+                take = min(tr.steps_per_dispatch, interval - tr.step_counter % interval)
+                group, batches = batches[:take], batches[take:]
+                tr.weighted_group(group)
+                tr.step_counter += len(group)
+                tr._maybe_outer_step(meta_loader, warm=False)
+            torch.cuda.synchronize()
+            timed[name].append((time.perf_counter() - t0) * 1e3)
+    for name, ms in timed.items():  # the first interval of each is the warm-up
+        result[f"{name}_interval_ms_p50"] = float(np.percentile(ms[1:], 50))
+        result[f"{name}_interval_ms_p90"] = float(np.percentile(ms[1:], 90))
+    result["timed_intervals"] = len(timed["graph"]) - 1
+    return fwd, bwd
+
+
+def fused_model(model, workdir, result, **train):
+    """``model`` at N = 16: a group through the graph against eager."""
+    cfg = _fused_cfg(workdir, model, **train)
+    trainer = Trainer(cfg, prepare_datasets(cfg, root=workdir), workdir=workdir, device="cuda")
+    trainer.init_state()
+    flash_attention_fwd.launches = 0
+    flash_attention_bwd.launches = 0
+    result.update(fused_vs_eager(trainer))
+    check_fused_vs_eager(model, result)
+    return flash_attention_fwd.launches, flash_attention_bwd.launches
+
+
+def fused(card, workdir):
+    """Phase 10 on phase 6's dataset: SASRec, DR4SR+ around SASRec, FMLP,
+    bf16 SASRec and the rest of the zoo at N = 16 (or refused). The
+    ``fused`` line holds what each part read, also when one of them fails."""
+    result = {"card": card, "steps_per_dispatch": FUSED_N}
+    try:
+        result["SASRec"] = {}
+        sasrec = fused_sasrec(workdir, card, result["SASRec"])
+        result["MetaModel(SASRec)"] = {}
+        meta_launches = fused_meta(workdir, card, result["MetaModel(SASRec)"])
+        result["FMLP"] = {}
+        fmlp = fused_model("FMLP", workdir, result["FMLP"])
+        if fmlp != (0, 0):
+            raise AssertionError(f"fused FMLP: attention launches {fmlp}")
+        result["SASRec bf16"] = {}
+        fused_model("SASRec", workdir, result["SASRec bf16"], precision="bf16")
+        for model in FUSED_OTHERS:
+            result[model] = {}
+            fused_model(model, workdir, result[model])
+        for model in FUSED_REFUSED:
+            cfg = _fused_cfg(workdir, model)
+            cfg["model"]["augment_type"] = "item_random"
+            try:
+                Trainer(cfg, prepare_datasets(cfg, root=workdir), device="cuda")
+            except NotImplementedError as e:
+                result[f"{model} item_random"] = {"refused": str(e)}
+            else:
+                raise AssertionError(f"fused {model} with item_random views: not refused")
+    finally:
+        log(f"fused {json.dumps(result)}")
+    return ({"fused_sasrec": sasrec[0], "fused_meta_sasrec": meta_launches[0],
+             "fused_fmlp": fmlp[0]},
+            {"fused_sasrec": sasrec[1], "fused_meta_sasrec": meta_launches[1],
+             "fused_fmlp": fmlp[1]})
+
+
 # deliberate faults in the backward route, each of which the card-vs-CPU
 # check should catch: the key-padding mask dropped, the causal mask dropped,
 # and the row log-sum-exp off by 1e-3 (every p scaled by e^-0.001)
@@ -1728,6 +2140,50 @@ FAULTS = {
     "lse_plus_1e-3": lambda bwd: (
         lambda q, k, v, o, do, lse, mask, causal: bwd(q, k, v, o, do, lse + 1e-3, mask, causal)),
 }
+
+
+def _generator_unregistered():
+    """Fault: the trainer's generator is not registered with the graphs."""
+    keep = torch.cuda.CUDAGraph.register_generator_state
+    torch.cuda.CUDAGraph.register_generator_state = lambda self, generator: None
+    return lambda: setattr(torch.cuda.CUDAGraph, "register_generator_state", keep)
+
+
+def _batches_not_copied():
+    """Fault: after the first group, a group's batches are not copied into
+    the graph's inputs (it replays on the previous group's rows)."""
+    keep = StepGraphs._copy_in
+
+    def first_only(self, stacked):
+        if self._copied is None:
+            keep(self, stacked)
+
+    StepGraphs._copy_in = first_only
+    return lambda: setattr(StepGraphs, "_copy_in", keep)
+
+
+FUSED_FAULTS = {"generator_unregistered": _generator_unregistered,
+                "batches_not_copied": _batches_not_copied}
+
+
+def fused_controls(datasets, workdir):
+    """``path: fused``: SASRec's graph-against-eager check at N = 16,
+    unfaulted and with each of ``FUSED_FAULTS``; a fault is caught when the
+    check fails or the capture raises."""
+    for fault in (None, *FUSED_FAULTS):
+        trainer = Trainer(_fused_cfg(workdir, "SASRec"), datasets, workdir=workdir,
+                          device="cuda")
+        trainer.init_state()
+        undo = FUSED_FAULTS[fault]() if fault else (lambda: None)
+        try:
+            parity = fused_vs_eager(trainer)
+            check_fused_vs_eager("SASRec", parity)
+            caught = False
+        except (AssertionError, RuntimeError) as e:
+            caught, parity = True, {"error": f"{type(e).__name__}: {e}"[:2000]}
+        finally:
+            undo()
+        log(f"control {json.dumps({'path': 'fused', 'fault': fault, 'caught': caught, **parity})}")
 
 
 def controls() -> int:
@@ -1763,6 +2219,7 @@ def controls() -> int:
                 except AssertionError:
                     caught = True
                 log(f"control {json.dumps({'path': path, 'fault': name, 'caught': caught, **parity})}")
+        fused_controls(datasets, workdir)
     return 0
 
 
@@ -1870,6 +2327,8 @@ def main() -> int:
         log(f"elapsed after phase 8: {time.perf_counter() - start:.1f}s")
         meta_fwd_launches, meta_bwd_launches = meta(card, workdir)
         log(f"elapsed after phase 9: {time.perf_counter() - start:.1f}s")
+        fused_fwd_launches, fused_bwd_launches = fused(card, workdir)
+        log(f"elapsed after phase 10: {time.perf_counter() - start:.1f}s")
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = [{
@@ -1880,7 +2339,8 @@ def main() -> int:
         "launches": train_fwd_launches,
         "launches_by_path": {"serve": serve_launches, "train": train_fwd_launches,
                              **regen_fwd_launches, **zoo_fwd_launches,
-                             **graph_fwd_launches, **meta_fwd_launches},
+                             **graph_fwd_launches, **meta_fwd_launches,
+                             **fused_fwd_launches},
         **{key: fwd_cases[0][key] for key in keys},
         "sass_hmma": hmma["flash_attention_fwd"],
         "cases": fwd_cases,
@@ -1892,7 +2352,8 @@ def main() -> int:
         "launches": train_bwd_launches,
         "launches_by_path": {"serve": serve_bwd_launches, "train": train_bwd_launches,
                              **regen_bwd_launches, **zoo_bwd_launches,
-                             **graph_bwd_launches, **meta_bwd_launches},
+                             **graph_bwd_launches, **meta_bwd_launches,
+                             **fused_bwd_launches},
         **{key: bwd_cases[0][key] for key in keys},
         "sass_hmma": hmma["flash_attention_bwd"],
         "cases": bwd_cases,

@@ -23,6 +23,7 @@ from typing import Any, Dict, Optional
 
 import torch
 
+from dr4sr_tpu_torch.models.cl4srec import host_pick_refusal
 from dr4sr_tpu_torch.models.registry import register_model
 from dr4sr_tpu_torch.models.sasrec import SASRec
 from dr4sr_tpu_torch.modules.augmentation import sample_draws
@@ -45,6 +46,8 @@ def _mean_rep(module, seq: torch.Tensor, seqlen: torch.Tensor) -> torch.Tensor:
 
 @register_model("ICLRec")
 class ICLRec(SASRec):
+    capture_refusal = staticmethod(host_pick_refusal)
+
     @staticmethod
     def build(config: Dict[str, Any], num_items: int, **kwargs):
         return SASRec.build(config, num_items, extra_embedding_rows=1, **kwargs)

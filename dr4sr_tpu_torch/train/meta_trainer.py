@@ -27,14 +27,21 @@ plain train loader, so CL4SRec2's views come from the batch's own rows.
 
 Random draws (negatives, Gumbel noise, contrastive views) come from the
 trainer's generator unless the caller passes them, so the CPU tests can
-feed the JAX package's draws in. Not ported: the fused multi-step loop
-(``train.steps_per_dispatch > 1``, refused by :class:`Trainer`).
+feed the JAX package's draws in.
+
+``train.steps_per_dispatch = N > 1`` groups the inner steps as the JAX
+trainer's fused loop does: outside warm-up a group stops at the next
+``interval`` boundary, so the outer step between groups sees the state the
+per-step loop would; warm groups replay the plain step's CUDA graph and
+weighted groups a weighted step's (``train.fused``), which reads the meta
+parameters in place; the outer step runs eagerly between groups.
 """
 
 from __future__ import annotations
 
 import contextlib
 import copy
+import itertools
 from typing import Any, Dict, Optional, Tuple
 
 import torch
@@ -151,6 +158,7 @@ class MetaTrainer(Trainer):
         self.meta_module.load_state_dict(mlp_state)
         with torch.no_grad():
             self.tau.fill_(tau)
+        self._graphs = None
 
     def _make_meta_optimizer(self) -> torch.optim.Optimizer:
         """sgd: coupled weight decay, momentum 0.9 (optax
@@ -172,8 +180,9 @@ class MetaTrainer(Trainer):
         parameters ``meta``; Gumbel noise from the generator unless given."""
         mlp = {k: v for k, v in meta.items() if k != "tau"}
         logits = torch.func.functional_call(self.meta_module, mlp, (query,))
-        # torch.maximum, as jnp.clip: half the gradient at a tie
-        tau = torch.maximum(meta["tau"], meta["tau"].new_tensor(self.tau_min))
+        # torch.maximum, as jnp.clip: half the gradient at a tie; the bound
+        # filled on the device (a host scalar copied in would not capture)
+        tau = torch.maximum(meta["tau"], torch.full_like(meta["tau"], self.tau_min))
         if noise is None:
             noise = gumbel_noise(logits.shape, self.generator, logits.device)
         return gumbel_softmax_weight(logits, tau, noise), tau
@@ -223,17 +232,30 @@ class MetaTrainer(Trainer):
         return total
 
     # -------------------------------------------------------------------- steps
-    def weighted_train_step(self, batch: Batch, neg_id: Optional[torch.Tensor] = None,
-                            views=None, noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def _weighted_update(self, batch: Batch, neg_id: Optional[torch.Tensor] = None,
+                         views=None, noise: Optional[torch.Tensor] = None) -> torch.Tensor:
         """One optimizer step of the sub-model on the weighted loss, the
-        meta parameters detached; returns the loss (on device)."""
+        meta parameters detached (views of their storage, which a captured
+        step reads in place), without the step count."""
         self.optimizer.zero_grad(set_to_none=True)
         meta = {k: v.detach() for k, v in self.meta_params.items()}
         loss = self._weighted_loss(batch, meta, neg_id=neg_id, views=views, noise=noise)
         loss.backward()
         self.optimizer.step()
-        self.step += 1
         return loss.detach()
+
+    def weighted_train_step(self, batch: Batch, neg_id: Optional[torch.Tensor] = None,
+                            views=None, noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """One optimizer step of the sub-model on the weighted loss, the
+        meta parameters detached; returns the loss (on device)."""
+        loss = self._weighted_update(batch, neg_id=neg_id, views=views, noise=noise)
+        self.step += 1
+        return loss
+
+    def weighted_group(self, batches) -> None:
+        """:meth:`Trainer.train_group` for weighted steps: a group of one as
+        :meth:`weighted_train_step`, a longer one through ``fused_steps``."""
+        self._group(batches, self.weighted_train_step, "weighted", self._weighted_update)
 
     def outer_step(self, val_batch: Batch, train_batch: Batch,
                    val_neg: Optional[torch.Tensor] = None,
@@ -289,21 +311,34 @@ class MetaTrainer(Trainer):
         self.outer_step(val_b, train_b)
 
     def training_epoch(self, nepoch: int) -> float:
+        """One epoch in groups of up to ``train.steps_per_dispatch``
+        batches, each followed by the outer step when the step counter
+        reaches an ``interval`` boundary; outside warm-up no group crosses
+        one (JAX's ``take = min(spd, interval − counter % interval)``)."""
         if self.rec is None:
             raise RuntimeError("call init_state() first")
         self.rec.module.train()
         meta_loader = self.train_data.get_loader(seed=nepoch + _META_LOADER_SEED)
         warm = nepoch <= self.warmup_epoch
-        total = torch.zeros((), device=self.device)
+        self._loss_sum.zero_()
         n_steps = 0
-        for batch in self.train_data.get_loader(seed=nepoch):
-            dbatch = self.device_batch(batch, is_train=True)
-            total += self.train_step(dbatch) if warm else self.weighted_train_step(dbatch)
-            n_steps += 1
-            self.step_counter += 1
+        batches = iter(self.train_data.get_loader(seed=nepoch))
+        while True:
+            take = self.steps_per_dispatch
+            if not warm:
+                take = min(take, self.interval - self.step_counter % self.interval)
+            group = list(itertools.islice(batches, take))
+            if not group:
+                break
+            if warm:
+                self.train_group(group)
+            else:
+                self.weighted_group(group)
+            n_steps += len(group)
+            self.step_counter += len(group)
             self._maybe_outer_step(meta_loader, warm)
         if not warm:
             probe = self.device_batch(meta_loader.sample_batch(), is_train=True)
             self.logged_metrics.update(
                 {k: float(v) for k, v in self.weight_stats(probe).items()})
-        return float(total) / max(n_steps, 1)
+        return float(self._loss_sum) / max(n_steps, 1)

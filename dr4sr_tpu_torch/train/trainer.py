@@ -30,11 +30,17 @@ the loss; ``refresh_state`` refits per-epoch state (NCL's prototypes,
 ICLRec's intents) into ``batch_extras`` at the start of every epoch
 (:meth:`Trainer.refresh_state`).
 
+``train.steps_per_dispatch = N > 1`` takes an epoch's batches in groups of
+N, as the JAX trainer's fused loop does: a group of N runs as one dispatch
+(``train.fused``: on the card one replay of a CUDA graph of the N steps,
+with Adam ``capturable``; on the CPU the same steps one after another), a
+leftover group of 1 as a plain step. A model whose step cannot be captured
+is refused up front (``fused.capture_refusal``).
+
 DR4SR+ (``MetaModel``, ``is_meta``) trains under the subclass
 ``train.meta_trainer.MetaTrainer``, which ``quickstart.make_trainer`` picks;
 a plain ``Trainer`` refuses it. Not ported yet, and refused with a clear
 error: ``model.context_parallel > 1`` (the multi-GPU slice),
-``train.steps_per_dispatch > 1`` (a later CUDA-graph PR),
 ``train.tensorboard_dir`` and ``train.profile_epoch``.
 """
 
@@ -43,6 +49,7 @@ from __future__ import annotations
 import contextlib
 import copy
 import dataclasses
+import itertools
 import json
 import logging
 import os
@@ -62,6 +69,7 @@ from dr4sr_tpu_torch.models.fmlp import expand_prefix_rows, pre_pad_batch
 from dr4sr_tpu_torch.models.gnn import build_transition_graph
 from dr4sr_tpu_torch.train.callbacks import Analyzer, EarlyStopping
 from dr4sr_tpu_torch.train.checkpoint import load_checkpoint
+from dr4sr_tpu_torch.train.fused import StepGraphs, capture_refusal, stack_batches, step_batches
 
 logger = logging.getLogger("dr4sr_tpu_torch")
 
@@ -78,6 +86,10 @@ class _OptaxRMS(torch.optim.Optimizer):
     def __init__(self, params, lr: float, weight_decay: float = 0.0, decay: float = 0.9,
                  eps: float = 1e-8) -> None:
         super().__init__(params, dict(lr=lr, weight_decay=weight_decay, decay=decay, eps=eps))
+        # made here, not at the first step, so that a captured step finds it
+        for group in self.param_groups:
+            for p in group["params"]:
+                self.state[p]["nu"] = torch.zeros_like(p)
 
     @torch.no_grad()
     def step(self, closure=None):
@@ -86,10 +98,7 @@ class _OptaxRMS(torch.optim.Optimizer):
                 if p.grad is None:
                     continue
                 g = p.grad.add(p, alpha=group["weight_decay"]) if group["weight_decay"] else p.grad
-                state = self.state[p]
-                if not state:
-                    state["nu"] = torch.zeros_like(p)
-                nu = state["nu"]
+                nu = self.state[p]["nu"]
                 nu.mul_(group["decay"]).addcmul_(g, g, value=1.0 - group["decay"])
                 p.addcmul_(g, torch.rsqrt(nu + group["eps"]), value=-group["lr"])
 
@@ -103,6 +112,11 @@ class _OptaxRSS(torch.optim.Optimizer):
         super().__init__(params, dict(lr=lr, weight_decay=weight_decay,
                                       initial_accumulator_value=initial_accumulator_value,
                                       eps=eps))
+        # made here, not at the first step, so that a captured step finds it
+        for group in self.param_groups:
+            for p in group["params"]:
+                self.state[p]["sum_of_squares"] = torch.full_like(
+                    p, group["initial_accumulator_value"])
 
     @torch.no_grad()
     def step(self, closure=None):
@@ -111,26 +125,27 @@ class _OptaxRSS(torch.optim.Optimizer):
                 if p.grad is None:
                     continue
                 g = p.grad.add(p, alpha=group["weight_decay"]) if group["weight_decay"] else p.grad
-                state = self.state[p]
-                if not state:
-                    state["sum_of_squares"] = torch.full_like(p, group["initial_accumulator_value"])
-                acc = state["sum_of_squares"]
+                acc = self.state[p]["sum_of_squares"]
                 acc.addcmul_(g, g)
                 scale = torch.where(acc > 0, torch.rsqrt(acc + group["eps"]), 0.0)
                 p.addcmul_(g, scale, value=-group["lr"])
 
 
-def make_optimizer(params, train_cfg: Dict[str, Any]) -> torch.optim.Optimizer:
+def make_optimizer(params, train_cfg: Dict[str, Any],
+                   capturable: bool = False) -> torch.optim.Optimizer:
     """torch-style optimizers (reference ``_get_optimizers``) matching the JAX
     package's optax chains: weight decay is coupled (added to the gradient
     before the update). adam and sgd are ``torch.optim``'s, which match
     ``scale_by_adam`` and ``identity``; rmsprop and adagrad follow optax's
-    formulas, which differ from ``torch.optim``'s defaults."""
+    formulas, which differ from ``torch.optim``'s defaults. ``capturable``
+    keeps Adam's step count on the device, so that a CUDA graph can hold
+    its update (its bias corrections then round differently in the last
+    bit)."""
     name = str(train_cfg.get("optimizer", "adam")).lower()
     lr = float(train_cfg.get("learning_rate", 1e-3))
     wd = float(train_cfg.get("weight_decay", 0.0) or 0.0)
     if name == "adam":
-        return torch.optim.Adam(params, lr=lr, weight_decay=wd)
+        return torch.optim.Adam(params, lr=lr, weight_decay=wd, capturable=capturable)
     if name == "sgd":
         return torch.optim.SGD(params, lr=lr, weight_decay=wd)
     if name == "rmsprop":
@@ -171,9 +186,17 @@ class Trainer:
         for key in _UNPORTED_TRAIN_KEYS:
             if cfg_t.get(key) is not None:
                 raise NotImplementedError(f"train.{key} is not ported to dr4sr_tpu_torch yet")
-        if int(cfg_t.get("steps_per_dispatch", 1)) > 1:
-            raise NotImplementedError(
-                "train.steps_per_dispatch > 1 waits for the CUDA-graph port; use 1")
+        self.steps_per_dispatch = int(cfg_t.get("steps_per_dispatch", 1))
+        if self.steps_per_dispatch < 1:
+            raise ValueError(f"train.steps_per_dispatch must be at least 1, got "
+                             f"{self.steps_per_dispatch}")
+        if self.steps_per_dispatch > 1:
+            refusal = capture_refusal(self.model_class, config)
+            if refusal is not None:
+                raise NotImplementedError(
+                    f"train.steps_per_dispatch={self.steps_per_dispatch} with "
+                    f"{self.model_name}: its step cannot be captured into a CUDA graph: "
+                    f"{refusal}; use 1")
         prec = str(cfg_t.get("precision", "fp32")).lower()
         if prec not in ("fp32", "float32", "bf16", "bfloat16"):
             raise ValueError(f"train.precision must be fp32 or bf16, got {prec!r}")
@@ -206,6 +229,9 @@ class Trainer:
         self.batch_extras: Dict[str, torch.Tensor] = {}
         if getattr(self.model_class, "needs_graph", False):
             self._build_graph()
+        # the epoch's loss sum, on the device; captured steps add to it by address
+        self._loss_sum = torch.zeros((), device=self.device)
+        self._graphs: Optional[StepGraphs] = None  # the fused groups' CUDA graphs
 
     # ------------------------------------------------------------------ graph
     def _build_graph(self) -> None:
@@ -230,7 +256,9 @@ class Trainer:
         module = self.model_class.build(self.config, self.num_items,
                                         generator=torch.Generator().manual_seed(seed))
         self.rec = RecModel(self.config, module.to(self.device), self.num_items, self.num_users)
-        self.optimizer = make_optimizer(module.parameters(), self.config["train"])
+        self.optimizer = make_optimizer(module.parameters(), self.config["train"],
+                                        capturable=self._captures)
+        self._graphs = None
         self.step = 0
         # negatives from their own generator; dropout from the default ones
         self.generator = torch.Generator(device=self.device).manual_seed(seed + 1)
@@ -259,10 +287,16 @@ class Trainer:
         out.update(self.batch_extras)
         return out
 
+    @property
+    def _captures(self) -> bool:
+        """Whether groups of steps are captured into CUDA graphs."""
+        return self.device.type == "cuda" and self.steps_per_dispatch > 1
+
     def _autocast(self):
         if self.compute_dtype is None:
             return contextlib.nullcontext()
-        return torch.autocast(self.device.type, dtype=self.compute_dtype)
+        # no cache of cast weights: it would not outlive a captured step
+        return torch.autocast(self.device.type, dtype=self.compute_dtype, cache_enabled=False)
 
     # -------------------------------------------------------------- train step
     def loss(self, batch: Dict[str, torch.Tensor], neg_id: Optional[torch.Tensor] = None,
@@ -292,15 +326,58 @@ class Trainer:
             loss = loss + aux_loss(self.rec.module, batch, model_cfg, self.num_items, aux_draws)
         return loss.float()
 
-    def train_step(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
-        """One optimizer step on a device batch; returns the loss (on device)."""
+    def _update(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """One optimizer step on a device batch, without the step count:
+        what a CUDA graph of a group captures."""
         self.optimizer.zero_grad(set_to_none=True)
         with self._autocast():
             loss = self.loss(batch)
         loss.backward()
         self.optimizer.step()
-        self.step += 1
         return loss.detach()
+
+    def train_step(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """One optimizer step on a device batch; returns the loss (on device)."""
+        loss = self._update(batch)
+        self.step += 1
+        return loss
+
+    def train_group(self, batches) -> None:
+        """One dispatch of plain steps over host ``batches``, their losses
+        added to the epoch's sum: a group of one as :meth:`train_step`, a
+        longer one through :meth:`fused_steps`."""
+        self._group(batches, self.train_step, "train", self._update)
+
+    def _group(self, batches, step, kind: str, update) -> None:
+        if len(batches) == 1:
+            self._loss_sum.add_(step(self.device_batch(batches[0], is_train=True)))
+        else:
+            self.fused_steps(batches, kind, update)
+
+    def fused_steps(self, batches, kind: str, update) -> torch.Tensor:
+        """``len(batches)`` optimizer steps of ``update`` (a step without
+        the step count) in one dispatch, as the JAX trainer's
+        ``multi_train_step``: on the card one replay of the CUDA graph of
+        ``kind``'s steps at this group length (:class:`fused.StepGraphs`),
+        on the CPU the same steps one after another. Each loss is added to
+        the epoch's sum; returns the [n] losses."""
+        hosts = [self.host_transform(b, is_train=True) for b in batches]
+
+        def step(batch):
+            loss = update(batch)
+            self._loss_sum.add_(loss)
+            return loss
+
+        if self._captures:
+            if self._graphs is None:
+                self._graphs = StepGraphs(self.generator, self.steps_per_dispatch)
+            losses = self._graphs.run(kind, step, hosts, self.batch_extras)
+        else:
+            stacked = stack_batches(hosts)
+            losses = torch.stack([step(b) for b in step_batches(stacked, self.batch_extras,
+                                                                len(batches))])
+        self.step += len(batches)
+        return losses
 
     def train_batches(self, nepoch: int):
         """The host batches of epoch ``nepoch``; for an ``aug_from_original``
@@ -333,22 +410,35 @@ class Trainer:
     def refresh_state(self, nepoch: int) -> None:
         """The model's per-epoch state (``refresh_state``: k-means
         prototypes or intents under the current weights) into
-        :attr:`batch_extras`; nothing for a model without the hook."""
+        :attr:`batch_extras`; nothing for a model without the hook. An
+        entry of the same shape is copied in place (captured steps read it
+        by address); any other drops the captured graphs."""
         refresh = getattr(self.model_class, "refresh_state", None)
-        if refresh is not None:
-            self.batch_extras.update(refresh(self, nepoch))
+        if refresh is None:
+            return
+        for key, value in refresh(self, nepoch).items():
+            old = self.batch_extras.get(key)
+            if (old is not None and old.shape == value.shape and old.dtype == value.dtype
+                    and old.device == value.device):
+                old.copy_(value)
+            else:
+                self.batch_extras[key] = value
+                self._graphs = None
 
     def training_epoch(self, nepoch: int) -> float:
+        """One epoch in groups of ``train.steps_per_dispatch`` batches
+        (:meth:`train_group`); returns the mean loss."""
         if self.rec is None:
             raise RuntimeError("call init_state() first")
         self.refresh_state(nepoch)
         self.rec.module.train()
-        total = torch.zeros((), device=self.device)
+        self._loss_sum.zero_()
         n_steps = 0
-        for batch in self.train_batches(nepoch):
-            total += self.train_step(self.device_batch(batch, is_train=True))
-            n_steps += 1
-        return float(total) / max(n_steps, 1)
+        batches = self.train_batches(nepoch)
+        while group := list(itertools.islice(batches, self.steps_per_dispatch)):
+            self.train_group(group)
+            n_steps += len(group)
+        return float(self._loss_sum) / max(n_steps, 1)
 
     # --------------------------------------------------------------- eval step
     @torch.no_grad()
@@ -460,7 +550,8 @@ class Trainer:
             self.init_state()
         payload = torch.load(path, map_location="cpu", weights_only=True)
         self.rec.module.load_state_dict(payload["params"])
-        self.optimizer.load_state_dict(payload["optimizer"])
+        self.optimizer.load_state_dict(payload["optimizer"])  # rebinds its state
+        self._graphs = None
         self.step = int(payload["step"])
         self.generator.set_state(payload["generator"])
         torch.set_rng_state(payload["torch_rng"])

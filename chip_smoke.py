@@ -87,7 +87,29 @@ Phases, in order; any failure raises and the script exits nonzero:
    cut at every ``interval`` boundary, the outer steps eager between them)
    with phase 5's and phase 9's launch counts; one profiled replay (32
    forward and 32 backward kernels, one ``cudaGraphLaunch``); groups and
-   DR4SR+ intervals timed through the graphs and eagerly.
+   DR4SR+ intervals timed through the graphs and eagerly;
+11. dist: on the same data, SASRec at the amazon-toys width (dropout 0)
+   over ``torch.distributed``: NCCL at world size 1 (a ``Trainer`` over a
+   1 × 1 mesh with ``shard_embedding``, 3 steps and a validation pass,
+   bitwise equal to a plain one); then ranks spawned on the one card over
+   gloo (NCCL takes no two ranks of a communicator on one card; gloo sends
+   are staged through pinned host memory): DP 2 × 1, EP 1 × 2 (table
+   11,925 → 11,926 rows), CP 1 × 2 (L 50 → 25 a rank) and one step of 2 × 2
+   (EP and CP) on four processes, each from one rank's weights, batches
+   and negatives (one batch's halves hold unequal valid rows) against one
+   rank on the card: 3 Adam losses (atol 1e-5) and the first step's
+   gradients (each parameter's error over its largest ≤ 1e-5), replicas
+   bitwise equal across ranks, the sharded eval of one rank's final
+   weights against its unsharded eval (metrics atol 1e-5; top-k ids equal
+   but at near ties), attention launches as predicted, a step's
+   collectives by kind and axis (EP: only the gathered embeddings' all-
+   reduces; CP: the ring's sends and the all-gathers of o, dq, dk, dv, none
+   of K or V); the ring through both kernels against one rank's
+   ``FlashAttention`` at [256, 2, 50, 32], f32 and bf16, causal and not,
+   with a fully padded row; the artifact's decode of 4,096 sequences under
+   K = 5 on 2 ranks, token for token as one rank's; step times of each run
+   beside one rank's (host-staged gloo on one card: not a multi-GPU
+   speed).
 
 It prints one ``{"kernels": [...]}`` line, then as its last line
 ``{"ok": true, "device": {...}}``. It imports nothing of JAX. Kernel times
@@ -98,10 +120,12 @@ are device time per call (:func:`device_ms`).
 runs only the card-vs-CPU gradient checks of phases 5, 6, 7 (CL4SRec) and 9
 (SASRec's weighted step),
 once with each of a few deliberate faults patched into the backward route,
-and phase 10's graph-against-eager check of SASRec with the trainer's
+phase 10's graph-against-eager check of SASRec with the trainer's
 generator left unregistered and with a group's batches not copied into the
-graph's inputs; it prints whether the check caught each (a ``control
-{...}`` line per path and fault).
+graph's inputs, and phase 11's checks against one rank with the EP
+gather's backward summing over ``model``, the ring's backward without its
+last send, and the loss's denominator left per rank; it prints whether the
+check caught each (a ``control {...}`` line per path and fault).
 """
 
 from __future__ import annotations
@@ -228,6 +252,10 @@ ATTENTION_CASES = [
     ("regen_src_f32", 256, 2, 52, 52, 32, True, torch.float32),
     ("regen_tgt_f32", 256, 2, 26, 26, 32, True, torch.float32),
     ("regen_cross_f32", 256, 2, 26, 52, 32, False, torch.float32),
+    # a block of phase 11's ring at context parallelism 2: L = 50 in two
+    # chunks of 25, the rank's own block causal and an earlier one not
+    ("ring_block_causal_f32", 256, 2, 25, 25, 32, True, torch.float32),
+    ("ring_block_full_f32", 256, 2, 25, 25, 32, False, torch.float32),
 ]
 # forward only: the eval batch of the train path and the regenerator's
 # encoder at decode (non-causal); neither takes a gradient
@@ -2129,6 +2157,524 @@ def fused(card, workdir):
              "fused_fmlp": fmlp[1]})
 
 
+# phase 11, multi-GPU (dist): SASRec at the amazon-toys width (phase 5's
+# config, dropout 0, f32) on phase 6's data. The ranks are spawned processes
+# (``parallel.launch.run_ranks``, a ``FileStore``), rank r on card r mod the
+# card count; on one card they share it over gloo, which stages CUDA tensors
+# through the host, so every time is then host-staged gloo, not a multi-GPU
+# speed, and NCCL runs at world size 1 only (NCCL takes no two ranks of one
+# communicator on one card).
+# name: (data, model, shard_embedding, context_parallel, checked steps)
+DIST_RUNS = {
+    "dp": (2, 1, False, 1, 3),
+    "ep": (1, 2, True, 1, 3),
+    "cp": (1, 2, False, 2, 3),
+    "2x2": (2, 2, True, 2, 1),
+}
+DIST_BACKEND = "gloo"  # "nccl" where every rank has a card of its own
+DIST_TIMEOUT_S = 240
+DIST_TIMED = 10  # uncounted steps timed after the checked ones
+DIST_METRIC_ATOL = 1e-5
+DIST_DECODE_SEQS = 4096  # the first training sequences, under all K conditions
+# the ring against one rank's FlashAttention: [B, H, L, Dh], both dtypes, both masks
+DIST_RING_SHAPE = (256, 2, 50, 32)
+DIST_RING_CASES = [(dtype, causal) for dtype in (torch.float32, torch.bfloat16)
+                   for causal in (True, False)]
+
+
+def _dist_cfg(workdir, cp=1):
+    cfg = _train_cfg(workdir)
+    cfg["model"]["dropout_rate"] = 0.0
+    if cp > 1:
+        cfg["model"]["context_parallel"] = cp
+    return cfg
+
+
+def _dist_inputs(datasets):
+    """The checked steps' global host batches and negatives: the first
+    three batches of epoch 0, the second cut to unequal halves (the second
+    half keeps BATCH/8 valid rows), so that a per-rank loss denominator
+    shows."""
+    rng = np.random.default_rng(11)
+    batches = [b for b, _ in zip(datasets[0].get_loader(seed=0), range(3))]
+    batches[1] = dict(batches[1], valid=batches[1]["valid"].copy())
+    batches[1]["valid"][BATCH // 2 + BATCH // 8:] = False
+    negs = [rng.integers(1, NUM_ITEMS, size=(BATCH, 50, 1)) for _ in batches]
+    return batches, negs
+
+
+def _full_grads(trainer):
+    """The gradients after a step; a row-sharded table's gathered over
+    ``model``, without its padding row."""
+    from dr4sr_tpu_torch.parallel.collectives import all_gather
+
+    grads = {k: p.grad.detach().clone() for k, p in trainer.rec.module.named_parameters()}
+    if trainer.plan.ep_sharded():
+        grads["item_embedding.weight"] = all_gather(grads["item_embedding.weight"],
+                                                    trainer.plan.axis("model"),
+                                                    dim=0)[: trainer.num_items]
+    return {k: g.cpu() for k, g in grads.items()}
+
+
+def _timed_steps(trainer, datasets, n):
+    """``n`` uncounted steps (after one warm-up), each from host batch to done."""
+    lat_ms = []
+    for i, batch in enumerate(datasets[0].get_loader(seed=1)):
+        if i > n:
+            break
+        t0 = time.perf_counter()
+        trainer.train_step(trainer.device_batch(batch, is_train=True))
+        _sync(trainer.device)
+        if i > 0:
+            lat_ms.append((time.perf_counter() - t0) * 1e3)
+    return {"step_ms_p50": float(np.percentile(lat_ms, 50)),
+            "step_ms_p90": float(np.percentile(lat_ms, 90)), "timed_steps": len(lat_ms)}
+
+
+def _sync(device):
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _dist_reference(workdir, datasets, device="cuda"):
+    """One rank on the card: the checked steps' losses, the first step's
+    gradients, the weights after them, the eval of those weights (its
+    metrics and the top-k of the first validation batch) and timed steps."""
+    batches, negs = _dist_inputs(datasets)
+    trainer = Trainer(_dist_cfg(workdir), datasets, workdir=workdir, device=device)
+    trainer.init_state()
+    init = {k: v.detach().cpu().clone() for k, v in trainer.rec.module.state_dict().items()}
+    losses, grads = [], None
+    for batch, neg in zip(batches, negs):
+        losses.append(trainer.train_step(trainer.device_batch(batch, is_train=True),
+                                         torch.from_numpy(neg).to(device)).item())
+        grads = grads or _full_grads(trainer)
+    final = {k: v.detach().cpu().clone() for k, v in trainer.rec.module.state_dict().items()}
+    metrics = trainer._eval_epoch(trainer.val_data, "toy")
+    scores, ids = _first_val_topk(trainer)
+    return {"init": init, "final": final, "losses": losses, "grads": grads, "metrics": metrics,
+            "scores": scores, "ids": ids, "timed": _timed_steps(trainer, datasets, DIST_TIMED)}
+
+
+def _first_val_topk(trainer):
+    """(scores, ids) of this rank's rows of the first validation batch."""
+    trainer.val_data.set_eval_domain("toy")
+    keep = torch.from_numpy(trainer.val_data.domain_item_mask("toy")).to(trainer.device)
+    batch = next(iter(trainer.val_data.get_loader()))
+    scores, ids = trainer.eval_topk(trainer.device_batch(batch), keep)
+    return scores.cpu(), ids.cpu()
+
+
+def dist_train_rank(rank, workdir, run, ref, fault, device="cuda"):
+    """One rank of a ``DIST_RUNS`` run: the checked steps from ``ref``'s
+    weights on its batches and negatives, then ``ref``'s final weights
+    evaluated (one pass over the validation rows, sharded as the run
+    shards), the attention launches and collectives of both, the top-k of
+    the first validation batch, the local weights after the steps (for
+    the replicas' bitwise check) and timed steps."""
+    from dr4sr_tpu_torch.parallel.collectives import COUNTER
+    from dr4sr_tpu_torch.parallel.mesh import MeshPlan, create_mesh
+
+    data, model, shard, cp, steps = DIST_RUNS[run]
+    if fault is not None:
+        DIST_FAULTS[fault]()
+    datasets = prepare_datasets(TRAIN_CONFIG, root=workdir)
+    plan = MeshPlan(mesh=create_mesh(data=data, model=model, device_type=device),
+                    shard_embedding=shard)
+    trainer = Trainer(_dist_cfg(workdir, cp), datasets, workdir=workdir, device=device,
+                      mesh_plan=plan)
+    trainer.init_state()
+    trainer.set_params(ref["init"])
+    batches, negs = _dist_inputs(datasets)
+    flash_attention_fwd.launches = flash_attention_bwd.launches = 0
+    losses, grads, step_collectives = [], None, []
+    for batch, neg in list(zip(batches, negs))[:steps]:
+        neg = torch.from_numpy(neg).to(device)
+        if trainer.data_axis is not None:
+            neg = trainer.data_axis.chunk(neg, 0)
+        COUNTER.reset()
+        losses.append(trainer.train_step(trainer.device_batch(batch, is_train=True), neg).item())
+        step_collectives.append(COUNTER.snapshot())
+        grads = grads or _full_grads(trainer)
+    local = {k: v.detach().cpu().clone() for k, v in trainer.rec.module.state_dict().items()}
+    trainer.set_params(ref["final"])
+    COUNTER.reset()
+    metrics = trainer._eval_epoch(trainer.val_data, "toy")
+    _sync(device)
+    launches = (flash_attention_fwd.launches, flash_attention_bwd.launches)
+    eval_collectives = COUNTER.snapshot()
+    scores, ids = _first_val_topk(trainer)
+    return {"losses": losses, "grads": grads, "local": local, "metrics": metrics,
+            "scores": scores, "ids": ids, "launches": launches,
+            "step_collectives": step_collectives, "eval_collectives": eval_collectives,
+            "timed": _timed_steps(trainer, datasets, DIST_TIMED),
+            "eval_batches": len(datasets[1].get_loader())}
+
+
+def _dist_launches_want(run, rank, eval_batches):
+    """The attention launches a rank of ``run`` makes in its checked steps
+    and eval: per layer a forward per step and eval batch and a backward
+    (one kernel at L = 50) per step, times the blocks the ring folds into
+    this rank's queries under ``causal`` (model index + 1)."""
+    data, model, shard, cp, steps = DIST_RUNS[run]
+    layers = TRAIN_CONFIG["model"]["layer_num"]
+    blocks = rank % model + 1 if cp > 1 else 1
+    return layers * (steps + eval_batches) * blocks, layers * steps * blocks
+
+
+def _ids_differ_only_at_ties(got_scores, got_ids, want_scores, want_ids):
+    """Where the ids differ, the reference's neighbouring scores lie within NEAR_TIE."""
+    differ = got_ids != want_ids
+    if not differ.any():
+        return 0, True
+    gaps = (want_scores[:, 1:] - want_scores[:, :-1]).abs()
+    near = torch.zeros_like(differ)
+    near[:, 1:] |= gaps <= NEAR_TIE
+    near[:, :-1] |= gaps <= NEAR_TIE
+    ok = bool((~differ | near).all()) and (got_scores - want_scores).abs().max().item() <= NEAR_TIE
+    return int(differ.sum()), ok
+
+
+def check_dist_run(run, outs, ref):
+    """A run's ranks against the one-rank reference; returns the summary
+    and raises on the first fault."""
+    data, model, shard, cp, steps = DIST_RUNS[run]
+    summary = {"mesh": [data, model], "shard_embedding": shard, "context_parallel": cp,
+               "steps": steps}
+    parity = _parity({"cuda": (outs[0]["losses"], outs[0]["grads"]),
+                      "cpu": (ref["losses"][:steps], ref["grads"])})
+    summary["vs_one_rank"] = {k: parity[k] for k in ("grad_max_rel_err", "grad_worst_param",
+                                                     "loss_max_abs_err", "losses_card")}
+    if not (parity["grad_max_rel_err"] <= GRAD_RTOL and parity["loss_max_abs_err"] <= LOSS_ATOL):
+        raise AssertionError(f"dist {run} vs one rank: {summary['vs_one_rank']} (grads rtol "
+                             f"{GRAD_RTOL} of the largest, losses atol {LOSS_ATOL})")
+    for out in outs[1:]:
+        if out["losses"] != outs[0]["losses"]:
+            raise AssertionError(f"dist {run}: the ranks' losses differ")
+    # replicas bitwise: rank = data index · model + model index; a sharded
+    # table's shard is replicated over the data ranks of its model index
+    for r, out in enumerate(outs):
+        for k, v in out["local"].items():
+            twin = outs[r % model] if (shard and k == "item_embedding.weight") else outs[0]
+            if not torch.equal(v, twin["local"][k]):
+                raise AssertionError(f"dist {run}: replica {k} of rank {r} differs")
+    summary["replicas_bitwise"] = True
+    metric_err = max(abs(out["metrics"][k] - v) for out in outs for k, v in ref["metrics"].items())
+    summary["metric_max_abs_err"] = metric_err
+    if metric_err > DIST_METRIC_ATOL:
+        raise AssertionError(f"dist {run}: eval metrics off the one-rank eval by {metric_err}")
+    rows = ref["ids"].shape[0] // data
+    differ = 0
+    for r, out in enumerate(outs):
+        sl = slice((r // model) * rows, (r // model + 1) * rows)
+        n, ok = _ids_differ_only_at_ties(out["scores"], out["ids"], ref["scores"][sl],
+                                         ref["ids"][sl])
+        differ += n
+        if not ok:
+            raise AssertionError(f"dist {run}: top-k ids of rank {r} differ beyond near ties")
+    summary["topk_ids_differing_at_ties"] = differ
+    want = [_dist_launches_want(run, r, outs[r]["eval_batches"]) for r in range(len(outs))]
+    got = [out["launches"] for out in outs]
+    summary["launches"] = {"fwd": [g[0] for g in got], "bwd": [g[1] for g in got],
+                           "want_fwd": [w[0] for w in want], "want_bwd": [w[1] for w in want]}
+    if [tuple(g) for g in got] != [tuple(w) for w in want]:
+        raise AssertionError(f"dist {run}: launches {got}, want {want}")
+    summary["step_collectives"] = outs[0]["step_collectives"][0]
+    summary["eval_collectives"] = outs[0]["eval_collectives"]
+    check_dist_collectives(run, outs[0]["step_collectives"][0])
+    summary["timed"] = [out["timed"] for out in outs]
+    return summary
+
+
+def check_dist_collectives(run, step):
+    """What a step moves, by kind and axis. EP: only the ``model``
+    all-reduces of the gathered embeddings (in_item_id, item_id and the
+    negatives: 3 · B/D · L · D floats), none of the table's N · D; CP: per
+    layer the ring's sends (3 forward, 5 a backward rotation, 2 home) and
+    the all-gathers of o, dq, dk and dv, no all-gather of K or V."""
+    data, model, shard, cp, steps = DIST_RUNS[run]
+    layers, dim, length = TRAIN_CONFIG["model"]["layer_num"], CONFIG["model"]["embed_dim"], 50
+    heads = CONFIG["model"]["head_num"]
+    b = BATCH // data
+    want = {}
+    if data > 1:  # the count's all-reduce, then the gradients' with the loss
+        want["all_reduce:data"] = 2
+    if shard:
+        want["all_reduce:model"] = {"calls": 3, "bytes": 3 * b * length * dim * 4}
+    if cp > 1:
+        qkv = b * heads * length * (dim // heads) * 4
+        want["all_gather:model"] = {"calls": 4 * layers, "bytes": 4 * layers * qkv}
+        want["send:model"] = 10 * layers
+    got = {k: (v if isinstance(want.get(k), dict) else v["calls"]) for k, v in step.items()}
+    if got != want:
+        raise AssertionError(f"dist {run}: a step's collectives {step}, want {want}")
+
+
+def dist_ring_rank(rank, device="cuda"):
+    """The ring over 2 ranks through both kernels against one rank's
+    ``FlashAttention`` on the same inputs: the output and dq, dk, dv, with
+    padded rows and a fully padded row, at DIST_RING_SHAPE in both dtypes,
+    causal and not, within atol (phases 2 and 3's) + PATH_RTOL · |value|
+    (phase 3's rule for a whole path: 0 in f32, one bf16 step in bf16); the ring's collectives and wall time beside
+    FlashAttention's. Also whether the ring's sends went through host
+    memory, as ``collectives.stages_through_host`` decides it."""
+    from dr4sr_tpu_torch.ops.ring_attention import ring_attention
+    from dr4sr_tpu_torch.parallel.collectives import COUNTER, stages_through_host
+    from dr4sr_tpu_torch.parallel.mesh import MeshPlan, create_mesh
+
+    axis = MeshPlan(mesh=create_mesh(data=1, model=2, device_type=device)).axis("model")
+    b, h, length, dh = DIST_RING_SHAPE
+    cases = []
+    for i, (dtype, causal) in enumerate(DIST_RING_CASES):
+        gen = torch.Generator(device=device).manual_seed(2000 + i)
+        q, k, v, do = (torch.randn(b, h, length, dh, generator=gen, device=device).to(dtype)
+                       for _ in range(4))
+        seqlen = torch.randint(1, length + 1, (b,), generator=gen, device=device)
+        seqlen[0] = 0  # a fully padded row
+        pad = torch.arange(length, device=device)[None, :] >= seqlen[:, None]
+        runs = {}
+        for name, fn in (("ring", lambda *t: ring_attention(*t, pad, causal, axis=axis)),
+                         ("flash", lambda *t: FlashAttention.apply(*t, pad, causal))):
+            leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+            COUNTER.reset()
+            o = fn(*leaves)
+            fwd = COUNTER.snapshot()
+            grads = torch.autograd.grad(o, leaves, do)
+            _sync(device)
+            lat = []
+            for _ in range(6):
+                t0 = time.perf_counter()
+                torch.autograd.grad(fn(*leaves), leaves, do)
+                _sync(device)
+                lat.append((time.perf_counter() - t0) * 1e3)
+            runs[name] = (o.detach(), grads, fwd, float(np.median(lat[1:])))
+        (o, grads, fwd, ms), (o_ref, grads_ref, _, ref_ms) = runs["ring"], runs["flash"]
+        # phase 3's rule for a whole path: atol + PATH_RTOL · |value| (bf16
+        # rounds each block's partial output and gradients once more)
+        rtol = PATH_RTOL[dtype]
+        excess = [max(((g.float() - w.float()).abs() - rtol * w.float().abs()).max().item()
+                      for g, w in zip(got, want))
+                  for got, want in (([o], [o_ref]), (grads, grads_ref))]
+        zero_row = not any((g[0] != 0).any().item() for g in (o, *grads))
+        cases.append({"dtype": str(dtype).replace("torch.", ""), "causal": causal,
+                      "shape": list(DIST_RING_SHAPE), "fwd_max_abs_err": _max_err([o], [o_ref]),
+                      "bwd_max_abs_err": _max_err(grads, grads_ref), "fwd_excess": excess[0],
+                      "bwd_excess": excess[1], "fwd_atol": ATOL[dtype],
+                      "bwd_atol": ATOL_BWD[dtype], "path_rtol": rtol, "padded_row_zero": zero_row,
+                      "forward_collectives": fwd, "ring_fwd_bwd_ms": ms,
+                      "flash_fwd_bwd_ms": ref_ms})
+    return cases, stages_through_host(axis, q)
+
+
+def check_dist_ring(cases):
+    b, h, length, dh = DIST_RING_SHAPE
+    for case in cases:
+        want = {"all_gather:model": {"calls": 1, "bytes": b * h * length * dh
+                                     * (4 if case["dtype"] == "float32" else 2)}}
+        sends = case["forward_collectives"].get("send:model", {}).get("calls")
+        if (case["fwd_excess"] > case["fwd_atol"]
+                or case["bwd_excess"] > case["bwd_atol"] or not case["padded_row_zero"]
+                or sends != 3 or {k: v for k, v in case["forward_collectives"].items()
+                                  if k != "send:model"} != want):
+            raise AssertionError(f"dist ring: {case}")
+
+
+def dist_decode_rank(rank, sequences, device="cuda"):
+    """``decode_dataset`` of the committed artifact over a 2-rank data mesh,
+    with its forward launches."""
+    from dr4sr_tpu_torch.parallel.mesh import MeshPlan, create_mesh
+
+    plan = MeshPlan(mesh=create_mesh(data=2, model=1, device_type=device))
+    gen = load_regenerator(ARTIFACT, device=device)
+    flash_attention_fwd.launches = flash_attention_bwd.launches = 0
+    t0 = time.perf_counter()
+    tokens = decode_dataset(gen, sequences, REGEN_K, batch_size=DECODE_BATCH,
+                            max_len=DECODE_MAX_LEN, mesh_plan=plan)
+    _sync(device)
+    return {"tokens": tokens, "run_s": time.perf_counter() - t0,
+            "launches": (flash_attention_fwd.launches, flash_attention_bwd.launches)}
+
+
+def dist_nccl_world1(workdir, datasets, result, device="cuda"):
+    """NCCL at world size 1: a ``Trainer`` over a 1 × 1 mesh with
+    ``shard_embedding`` against a plain one, 3 steps (dropout as configured,
+    0.5) and one validation pass, bitwise; its launches."""
+    from dr4sr_tpu_torch.parallel.mesh import MeshPlan, create_mesh, init_distributed
+
+    store = tempfile.mktemp(prefix="store_", dir=workdir)
+    backend = "nccl" if device == "cuda" else "gloo"
+    init_distributed(backend, store=torch.distributed.FileStore(store, 1), rank=0, world_size=1)
+    try:
+        runs = {}
+        for name in ("plain", "mesh"):
+            plan = (MeshPlan(mesh=create_mesh(data=1, model=1, device_type=device),
+                             shard_embedding=True) if name == "mesh" else None)
+            trainer = Trainer(_train_cfg(workdir), datasets, workdir=workdir, device=device,
+                              mesh_plan=plan)
+            trainer.init_state()
+            flash_attention_fwd.launches = flash_attention_bwd.launches = 0
+            losses = [trainer.train_step(trainer.device_batch(b, is_train=True)).item()
+                      for b, _ in zip(datasets[0].get_loader(seed=0), range(3))]
+            metrics = trainer.validate()
+            _sync(device)
+            runs[name] = (losses, {k: v.clone() for k, v in trainer.rec.module.state_dict()
+                                   .items()}, metrics,
+                          (flash_attention_fwd.launches, flash_attention_bwd.launches))
+        backend = torch.distributed.get_backend()
+    finally:
+        torch.distributed.destroy_process_group()
+    plain, mesh = runs["plain"], runs["mesh"]
+    bitwise = (plain[0] == mesh[0] and plain[2] == mesh[2]
+               and all(torch.equal(v, mesh[1][k]) for k, v in plain[1].items()))
+    want = _nccl_launches_want(len(datasets[1].get_loader()))
+    result["nccl_world1"] = {"backend": backend, "bitwise": bitwise, "losses": mesh[0],
+                             "launches": list(mesh[3]), "want": list(want)}
+    if not bitwise or mesh[3] != want:
+        raise AssertionError(f"dist nccl at world size 1: {result['nccl_world1']}")
+    return mesh[3]
+
+
+def _nccl_launches_want(eval_batches):
+    """3 steps and one validation pass: per layer a forward a step and eval
+    batch, a backward a step."""
+    layers = TRAIN_CONFIG["model"]["layer_num"]
+    return layers * (3 + eval_batches), layers * 3
+
+
+def _decode_launches_want(batches):
+    """The regenerator's 2 encoder layers a batch; no backward."""
+    return 2 * batches, 0
+
+
+def _spawn(fn, world, workdir, device, *args):
+    """``fn(rank, *args, device)`` on ``world`` gloo ranks that share the card."""
+    from dr4sr_tpu_torch.parallel.launch import run_ranks
+
+    store = tempfile.mktemp(prefix="store_", dir=workdir)
+    return run_ranks(fn, world, store, *args, device, backend=DIST_BACKEND,
+                     device_type=device, timeout_s=DIST_TIMEOUT_S)
+
+
+def dist(card, workdir, device="cuda"):
+    """Phase 11 on phase 6's data: NCCL at world size 1; DP, EP, CP and
+    2 × 2 over gloo on the card against one rank; the ring through both
+    kernels; sharded decode. The ``dist`` line holds what each part read,
+    also when one of them fails."""
+    cards = torch.cuda.device_count() if device == "cuda" else 0
+    result = {"card": card, "backend": DIST_BACKEND, "cards": cards,
+              "timing": ("host-staged gloo, ranks sharing the card: not a multi-GPU speed"
+                         if DIST_BACKEND == "gloo" else f"{DIST_BACKEND}, rank r on card r mod "
+                         f"{cards}")}
+    fwd, bwd = {}, {}
+    try:
+        datasets = prepare_datasets(TRAIN_CONFIG, root=workdir)
+        fwd["dist_nccl1"], bwd["dist_nccl1"] = dist_nccl_world1(workdir, datasets, result,
+                                                                 device)
+        ref = _dist_reference(workdir, datasets, device)
+        result["one_rank"] = {"losses": ref["losses"], "metrics": ref["metrics"],
+                              "timed": ref["timed"]}
+        for run, (data, model, *_rest) in DIST_RUNS.items():
+            t0 = time.perf_counter()
+            outs = _spawn(dist_train_rank, data * model, workdir, device, workdir, run, ref,
+                          None)
+            result[run] = check_dist_run(run, outs, ref)
+            result[run]["run_s"] = time.perf_counter() - t0
+            fwd[f"dist_{run}"] = sum(result[run]["launches"]["fwd"])
+            bwd[f"dist_{run}"] = sum(result[run]["launches"]["bwd"])
+        result["ring"], result["ring_sends_staged_through_host"] = _spawn(
+            dist_ring_rank, 2, workdir, device)[0]
+        check_dist_ring(result["ring"])
+        sequences = train_sequences_from_rows(datasets[0].rows())[:DIST_DECODE_SEQS]
+        gen = load_regenerator(ARTIFACT, device=device)
+        one = decode_dataset(gen, sequences, REGEN_K, batch_size=DECODE_BATCH,
+                             max_len=DECODE_MAX_LEN)
+        outs = _spawn(dist_decode_rank, 2, workdir, device, sequences)
+        batches = REGEN_K * -(-len(sequences) // DECODE_BATCH)
+        result["decode"] = {"lanes": len(one), "batches": batches,
+                            "equal": [o["tokens"] == one for o in outs],
+                            "launches": [list(o["launches"]) for o in outs],
+                            "want": list(_decode_launches_want(batches)),
+                            "run_s": [o["run_s"] for o in outs]}
+        if not all(result["decode"]["equal"]) or any(
+                tuple(o["launches"]) != _decode_launches_want(batches) for o in outs):
+            raise AssertionError(f"dist decode: {result['decode']}")
+        fwd["dist_decode"] = sum(o["launches"][0] for o in outs)
+        bwd["dist_decode"] = sum(o["launches"][1] for o in outs)
+    finally:
+        log(f"dist {json.dumps(result, default=str)}")
+    return fwd, bwd
+
+
+class _SummingAllReduce(torch.autograd.Function):
+    """An all-reduce whose backward sums the cotangent over the axis too, as
+    ``torch.distributed.nn.all_reduce``'s does."""
+
+    @staticmethod
+    def forward(ctx, x, axis):
+        from dr4sr_tpu_torch.parallel.collectives import all_reduce_
+
+        ctx.axis = axis
+        return all_reduce_(x.clone(), axis)
+
+    @staticmethod
+    def backward(ctx, grad):
+        from dr4sr_tpu_torch.parallel.collectives import all_reduce_
+
+        return all_reduce_(grad.clone(), ctx.axis), None
+
+
+def _ep_backward_sums():
+    """EP's gathers through :class:`_SummingAllReduce`."""
+    from dr4sr_tpu_torch.parallel import ep
+
+    ep.all_reduce_sum = _SummingAllReduce.apply
+
+
+def _ring_skips_last_send():
+    """The ring's backward without its last send: dK and dV stay one rank off."""
+    from dr4sr_tpu_torch.ops import ring_attention
+
+    real = ring_attention.ring_exchange
+    ring_attention.ring_exchange = lambda ts, axis: ([t.clone() for t in ts] if len(ts) == 2
+                                                    else real(ts, axis))
+
+
+def _bce_per_rank_denominator():
+    """BCE and BPR divide by this rank's count, not the global batch's."""
+    from dr4sr_tpu_torch.modules import losses
+
+    local = losses._global_count
+    losses._global_count = lambda mask_f, axis: local(mask_f, None)
+
+
+# phase 11's faults (name -> a function that patches it into a rank, called
+# by ``dist_train_rank``), and the run whose check must catch each
+DIST_FAULTS = {"ep_backward_sums": _ep_backward_sums,
+               "ring_skips_last_send": _ring_skips_last_send,
+               "bce_per_rank_denominator": _bce_per_rank_denominator}
+DIST_CONTROLS = {"ep_backward_sums": "ep", "ring_skips_last_send": "cp",
+                 "bce_per_rank_denominator": "dp"}
+
+
+def dist_controls(workdir, device="cuda"):
+    """``--controls``, path ``dist``: each of DIST_FAULTS patched into the
+    ranks of its run, whose check against one rank must fail."""
+    if device == "cuda":
+        _build.build_all()  # before any rank starts
+    datasets = _datasets(workdir)
+    ref = _dist_reference(workdir, datasets, device)
+    for fault, run in DIST_CONTROLS.items():
+        data, model, *_rest = DIST_RUNS[run]
+        outs = _spawn(dist_train_rank, data * model, workdir, device, workdir, run, ref, fault)
+        try:
+            check_dist_run(run, outs, ref)
+            caught, why = False, None
+        except AssertionError as e:
+            caught, why = True, str(e)[:200]
+        log(f"control {json.dumps({'path': 'dist', 'fault': fault, 'run': run,
+                                   'caught': caught, 'why': why})}")
+
+
 # deliberate faults in the backward route, each of which the card-vs-CPU
 # check should catch: the key-padding mask dropped, the causal mask dropped,
 # and the row log-sum-exp off by 1e-3 (every p scaled by e^-0.001)
@@ -2220,6 +2766,7 @@ def controls() -> int:
                     caught = True
                 log(f"control {json.dumps({'path': path, 'fault': name, 'caught': caught, **parity})}")
         fused_controls(datasets, workdir)
+        dist_controls(workdir)
     return 0
 
 
@@ -2329,6 +2876,8 @@ def main() -> int:
         log(f"elapsed after phase 9: {time.perf_counter() - start:.1f}s")
         fused_fwd_launches, fused_bwd_launches = fused(card, workdir)
         log(f"elapsed after phase 10: {time.perf_counter() - start:.1f}s")
+        dist_fwd_launches, dist_bwd_launches = dist(card, workdir)
+        log(f"elapsed after phase 11: {time.perf_counter() - start:.1f}s")
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = [{
@@ -2340,7 +2889,7 @@ def main() -> int:
         "launches_by_path": {"serve": serve_launches, "train": train_fwd_launches,
                              **regen_fwd_launches, **zoo_fwd_launches,
                              **graph_fwd_launches, **meta_fwd_launches,
-                             **fused_fwd_launches},
+                             **fused_fwd_launches, **dist_fwd_launches},
         **{key: fwd_cases[0][key] for key in keys},
         "sass_hmma": hmma["flash_attention_fwd"],
         "cases": fwd_cases,
@@ -2353,7 +2902,7 @@ def main() -> int:
         "launches_by_path": {"serve": serve_bwd_launches, "train": train_bwd_launches,
                              **regen_bwd_launches, **zoo_bwd_launches,
                              **graph_bwd_launches, **meta_bwd_launches,
-                             **fused_bwd_launches},
+                             **fused_bwd_launches, **dist_bwd_launches},
         **{key: bwd_cases[0][key] for key in keys},
         "sass_hmma": hmma["flash_attention_bwd"],
         "cases": bwd_cases,

@@ -14,7 +14,10 @@ bilevel training around them (``train.meta_trainer.MetaTrainer``, which
 ``quickstart.make_trainer`` picks for ``MetaModel``); every dataset class
 (``general`` and the ablation classes); the regeneration pipeline
 (``regen/``: mining, pretraining the regenerator, hybrid decode,
-``train_regen``; CLIs under ``scripts/``).
+``train_regen``; CLIs under ``scripts/``); groups of steps as CUDA graphs
+(``train/fused.py``); and several devices over ``torch.distributed``
+(``parallel/``: data, embedding and context parallelism, the last through
+``ops/ring_attention.py``).
 
 Importing the package loads no kernel and builds nothing.
 """

@@ -11,8 +11,10 @@ become ``nn.GRU``'s ``gru.weight_ih_lk`` [3H, Din] and ``gru.weight_hh_lk``
 ``complex_weight`` as it is, and its auto-named ``LayerNorm_0`` becomes
 ``norm``. GNN's ``backbone/...`` becomes ``backbone....`` (the same
 encoder rules), the VQ layers' ``level_i/codebook`` stays ``level_i.codebook``.
-Every leaf of the JAX tree must be used, and the result must hold
-exactly the module's keys at its shapes, or the conversion raises.
+An item table with more rows than the module's (padded to a multiple of the
+``model`` axis by an EP run, ``dr4sr_tpu/parallel/ep.py::padded_rows``) keeps
+its first rows. Every leaf of the JAX tree must be used, and the result must
+hold exactly the module's keys at its shapes, or the conversion raises.
 """
 
 from __future__ import annotations
@@ -66,6 +68,9 @@ def params_from_jax(params: Mapping[str, Any], module: nn.Module) -> Dict[str, t
         if jax_key.endswith("/kernel"):
             value = value.T
         tensor = torch.from_numpy(np.array(value, dtype=np.float32, order="C"))  # a copy
+        if name.endswith("item_embedding.weight") and tensor.shape[0] > expected[name].shape[0]:
+            # a table padded for a row-sharded (EP) run: no id reaches the padding
+            tensor = tensor[: expected[name].shape[0]].clone()
         if tensor.shape != expected[name].shape:
             raise ValueError(f"{jax_key!r}: shape {tuple(tensor.shape)} != {tuple(expected[name].shape)}")
         out[name] = tensor

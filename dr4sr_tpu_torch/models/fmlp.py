@@ -23,9 +23,10 @@ import torch
 from torch import nn
 
 from dr4sr_tpu_torch.data.dataset import RowData
-from dr4sr_tpu_torch.models.base import embedding_init_
+from dr4sr_tpu_torch.models.base import item_embedding
 from dr4sr_tpu_torch.models.registry import register_model
 from dr4sr_tpu_torch.modules.layers import FMLPEncoder, normal_
+from dr4sr_tpu_torch.parallel.ep import embed_lookup
 
 
 def expand_prefix_rows(rows: RowData) -> RowData:
@@ -80,9 +81,8 @@ class FMLPQueryEncoder(nn.Module):
         generator: Optional[torch.Generator] = None,
     ) -> None:
         super().__init__()
-        self.item_embedding = nn.Embedding(num_items, embed_dim)
+        self.item_embedding = item_embedding(num_items, embed_dim, generator)
         self.position_emb = nn.Embedding(max_seq_len, embed_dim)
-        embedding_init_(self.item_embedding.weight, generator)
         normal_(self.position_emb.weight, generator)
         self.input_norm = nn.LayerNorm(embed_dim, eps=layer_norm_eps)
         self.input_dropout = nn.Dropout(dropout)
@@ -92,7 +92,7 @@ class FMLPQueryEncoder(nn.Module):
     def forward(self, batch: Dict[str, torch.Tensor], need_pooling: bool = True) -> torch.Tensor:
         seq = batch["in_item_id"]
         pos = torch.arange(seq.shape[1], device=seq.device)
-        x = self.input_norm(self.item_embedding(seq) + self.position_emb(pos)[None])
+        x = self.input_norm(embed_lookup(self.item_embedding, seq) + self.position_emb(pos)[None])
         out = self.encoder(self.input_dropout(x))
         return out[:, -1]  # the last (pre-padded) position, in train and eval
 

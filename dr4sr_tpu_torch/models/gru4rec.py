@@ -14,9 +14,10 @@ from typing import Any, Dict, Optional
 import torch
 from torch import nn
 
-from dr4sr_tpu_torch.models.base import embedding_init_
+from dr4sr_tpu_torch.models.base import item_embedding
 from dr4sr_tpu_torch.models.registry import register_model
 from dr4sr_tpu_torch.modules.layers import _linear, gru_stack, seq_pooling
+from dr4sr_tpu_torch.parallel.ep import embed_lookup
 
 
 class GRU4RecEncoder(nn.Module):
@@ -30,14 +31,13 @@ class GRU4RecEncoder(nn.Module):
         generator: Optional[torch.Generator] = None,
     ) -> None:
         super().__init__()
-        self.item_embedding = nn.Embedding(num_items, embed_dim)
-        embedding_init_(self.item_embedding.weight, generator)
+        self.item_embedding = item_embedding(num_items, embed_dim, generator)
         self.gru = gru_stack(embed_dim, hidden_size, num_layers, generator)
         self.out_proj = _linear(hidden_size, embed_dim, generator)
         self.input_dropout = nn.Dropout(dropout)
 
     def forward(self, batch: Dict[str, torch.Tensor], need_pooling: bool = True) -> torch.Tensor:
-        x = self.input_dropout(self.item_embedding(batch["in_item_id"]))
+        x = self.input_dropout(embed_lookup(self.item_embedding, batch["in_item_id"]))
         out = self.out_proj(self.gru(x)[0])
         if not need_pooling:
             return out

@@ -6,9 +6,9 @@ mask → pooling ('origin' per-position queries when training, 'last' in eval
 mode). Keeps the ``batch['input_weight']`` multiplier and the
 ``batch['seq_emb']`` direct-embedding hooks.
 
-The item table is a plain ``nn.Embedding``: the JAX package's
-``parallel/ep.py`` (``padded_rows``, ``ep_gather``) is the identity on one
-device and comes with the multi-GPU slice.
+The item table has ``parallel.ep.padded_rows`` rows and is read through
+``parallel.ep.embed_lookup``, as in the JAX package: both are plain
+``nn.Embedding`` without an EP plan, and row-sharded under one.
 """
 
 from __future__ import annotations
@@ -18,9 +18,10 @@ from typing import Any, Dict, Optional
 import torch
 from torch import nn
 
-from dr4sr_tpu_torch.models.base import embedding_init_
+from dr4sr_tpu_torch.models.base import item_embedding
 from dr4sr_tpu_torch.models.registry import register_model
 from dr4sr_tpu_torch.modules.layers import TransformerEncoder, normal_, seq_pooling
+from dr4sr_tpu_torch.parallel.ep import embed_lookup
 
 
 class SASRecEncoder(nn.Module):
@@ -46,9 +47,9 @@ class SASRecEncoder(nn.Module):
         self.bidirectional = bidirectional
         self.training_pooling = training_pooling
         self.eval_pooling = eval_pooling
-        self.item_embedding = nn.Embedding(num_items + extra_embedding_rows, embed_dim)
+        self.item_embedding = item_embedding(num_items + extra_embedding_rows, embed_dim,
+                                             generator)
         self.position_emb = nn.Embedding(max_seq_len, embed_dim)
-        embedding_init_(self.item_embedding.weight, generator)
         normal_(self.position_emb.weight, generator)
         self.encoder = TransformerEncoder(
             num_layers=num_layers,
@@ -66,7 +67,7 @@ class SASRecEncoder(nn.Module):
     def forward(self, batch: Dict[str, torch.Tensor], need_pooling: bool = True) -> torch.Tensor:
         if batch.get("seq_emb") is None:
             seq = batch["in_item_id"]  # [B, L]
-            seq_embs = self.item_embedding(seq)
+            seq_embs = embed_lookup(self.item_embedding, seq)
             key_padding_mask = seq == 0
         else:
             seq_embs = batch["seq_emb"]

@@ -14,6 +14,16 @@ boolean ``mask`` (True = real position) and reproduces the same numerics:
 The loss arithmetic is f32 whatever the scores' dtype (bf16 under autocast).
 Masked logits are −1e30, not −inf, as in the JAX package: a row whose every
 logit is masked stays finite.
+
+Data parallelism: given the ``data`` axis (``axis``, a
+``parallel.collectives.Axis``), BCE and BPR divide this rank's numerator by
+the *global* batch's count (the valid positions summed over the axis, and
+for batch-level negatives the global number of entries), as the JAX
+package's mean over the sharded global batch does. Each rank's loss is
+then its share of the global loss, and the sum of the ranks' gradients,
+which the trainer takes over the ``data`` group, is the global batch's
+gradient. Averaging per-rank means would be wrong: the shards have
+unequal target counts.
 """
 
 from __future__ import annotations
@@ -23,7 +33,22 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from dr4sr_tpu_torch.parallel.collectives import Axis, all_reduce_
+
 _NEG = -1e30
+
+
+def _global_count(mask_f: torch.Tensor, axis: Optional[Axis]) -> torch.Tensor:
+    """The valid positions of the global batch (at least 1); no gradient."""
+    count = mask_f.sum().detach()
+    if axis is not None:
+        count = all_reduce_(count.clone(), axis)
+    return count.clamp_min(1.0)
+
+
+def _global_numel(x: torch.Tensor, axis: Optional[Axis]) -> int:
+    """Entries of ``x`` over the global batch (every rank's shard is the same shape)."""
+    return x.numel() * (1 if axis is None else axis.size)
 
 
 def binary_cross_entropy_loss(
@@ -31,11 +56,12 @@ def binary_cross_entropy_loss(
     neg_score: torch.Tensor,  # [B, neg] or [B, L, neg]
     mask: torch.Tensor,  # bool, same shape as pos_score; True = real
     reduce: bool = True,
+    axis: Optional[Axis] = None,  # the data axis: global denominators
 ) -> torch.Tensor:
     pos_score = pos_score.float()
     neg_score = neg_score.float()
     mask_f = mask.float()
-    denom = mask_f.sum().clamp_min(1.0)
+    denom = _global_count(mask_f, axis)
     pos_loss = F.logsigmoid(pos_score) * mask_f
     neg_loss = F.softplus(neg_score).mean(dim=-1)
     if pos_score.dim() == neg_score.dim() - 1:
@@ -45,10 +71,10 @@ def binary_cross_entropy_loss(
             return (-pos_loss.sum() + neg_loss.sum()) / denom
         return (-pos_loss + neg_loss) / denom
     # batch-level negatives: the reference takes a plain mean over them
-    neg_term = neg_loss.mean()
+    neg_term = neg_loss.mean() if axis is None else neg_loss.sum() / _global_numel(neg_loss, axis)
     if reduce:
         return -pos_loss.sum() / denom + neg_term
-    return -pos_loss / denom + neg_term / pos_loss.numel()
+    return -pos_loss / denom + neg_term / _global_numel(pos_loss, axis)
 
 
 def bpr_loss(
@@ -56,11 +82,12 @@ def bpr_loss(
     neg_score: torch.Tensor,
     mask: torch.Tensor,
     reduce: bool = True,
+    axis: Optional[Axis] = None,  # the data axis: global denominators
 ) -> torch.Tensor:
     pos_score = pos_score.float()
     neg_score = neg_score.float()
     mask_f = mask.float()
-    denom = mask_f.sum().clamp_min(1.0)
+    denom = _global_count(mask_f, axis)
     loss = F.logsigmoid(pos_score[..., None] - neg_score).mean(dim=-1) * mask_f
     if reduce:
         return -loss.sum() / denom

@@ -5,9 +5,14 @@
   pad) and an optional causal constraint, -1e30 mask fill, a safe softmax,
   and fully-masked query rows → 0 (PyTorch's SDPA gives NaN there). Scores
   and p·v are f32 with TF32 off.
+* :func:`flash_attention_fwd_reference` — plain PyTorch with the forward
+  kernel's contract: (o, row log-sum-exp), +inf for a fully masked row.
 * :func:`flash_attention_bwd_reference` — plain PyTorch of the arithmetic of
   ``dr4sr_tpu/ops/attention.py::_flash_bwd_kernel``, its rounding points
-  included: dq, dk, dv from q, k, v, o, dO and the mask.
+  included: dq, dk, dv from q, k, v, o, dO and the mask; given the row
+  log-sum-exp, p = exp(s − lse) as the backward kernel takes it, so a block
+  of the key axis gets its share of the whole row's softmax (the ring's
+  blocks, ``ops/ring_attention.py``).
 * :func:`flash_attention_fwd` — the hand-written CUDA forward kernel
   (``csrc/flash_attention_fwd.cu``), which replaces the Pallas TPU kernel
   ``_flash_kernel``: q·kᵀ and p·v on tensor cores (``mma.sync``), bf16
@@ -27,7 +32,8 @@
   differentiable: a backward with ``create_graph=True`` (for a second
   derivative, a Hessian-vector product) raises, where it would otherwise
   take the kernels' gradients as constants.
-* :func:`multihead_attention` — the dispatcher: a CPU tensor goes to
+* :func:`multihead_attention` — the dispatcher: under a context-parallel
+  plan the ring of ``ops/ring_attention.py``; else a CPU tensor goes to
   :func:`mha_reference` (plain autograd), a CUDA tensor to
   :class:`FlashAttention`, or the call raises.
 * :func:`plain_attention` — a scoped context inside which a CUDA tensor also
@@ -97,6 +103,31 @@ def _probs(s: torch.Tensor, invalid: torch.Tensor) -> torch.Tensor:
     return e / e.sum(dim=-1, keepdim=True).clamp_min(1e-30)
 
 
+def flash_attention_fwd_reference(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    key_padding_mask: Optional[torch.Tensor] = None,
+    causal: bool = True,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(o, lse) as :func:`flash_attention_fwd` with ``want_lse`` returns
+    them: o as :func:`mha_reference`, lse [B, H, Lq] f32 the log-sum-exp of
+    the row's unmasked scaled scores, +inf on a fully masked row. No
+    autograd."""
+    prev = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("highest")  # f32 scores: TF32 off
+    try:
+        with torch.no_grad():
+            s, invalid = _masked_scores(q, k, key_padding_mask, causal)
+            o = torch.matmul(_probs(s, invalid), v.float())
+            m = s.amax(dim=-1)
+            l = torch.exp(s - m[..., None]).masked_fill(invalid, 0.0).sum(dim=-1)
+            lse = torch.where(l > 0, m + torch.log(l), torch.inf)
+    finally:
+        torch.set_float32_matmul_precision(prev)
+    return o.to(q.dtype), lse
+
+
 def flash_attention_bwd_reference(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -105,19 +136,29 @@ def flash_attention_bwd_reference(
     do: torch.Tensor,
     key_padding_mask: Optional[torch.Tensor] = None,
     causal: bool = True,
+    lse: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(dq, dk, dv) as the TPU kernel computes them (``attention.py:221-296``):
     p over the full masked key row with masked entries forced to 0 after the
     exp (a fully masked row gives p = 0); dv = pᵀ·dO; ds = p ⊙ (dO·vᵀ −
     rowsum(dO ⊙ o)) with the rowsum in f32; dq = ds·k·scale, dk = dsᵀ·q·scale.
     bf16 inputs: bf16 operand values, p and ds rounded to bf16 before their
-    products, f32 accumulation. Results in the input dtype."""
+    products, f32 accumulation. Results in the input dtype.
+
+    ``lse`` [B, H, Lq] f32 (the forward's row log-sum-exp, possibly over
+    more keys than ``k`` holds) gives p = exp(s − lse), as the backward
+    kernel takes it, in place of the softmax over ``k``'s keys; +inf gives
+    p = 0."""
     bf16 = q.dtype == torch.bfloat16
     scale = 1.0 / (q.shape[3] ** 0.5)
     prev = torch.get_float32_matmul_precision()
     torch.set_float32_matmul_precision("highest")  # f32 products: TF32 off
     try:
-        p = _probs(*_masked_scores(q, k, key_padding_mask, causal))
+        s, invalid = _masked_scores(q, k, key_padding_mask, causal)
+        if lse is None:
+            p = _probs(s, invalid)
+        else:
+            p = torch.exp(s - lse[..., None]).masked_fill(invalid, 0.0)
         qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
         pm = p.bfloat16().float() if bf16 else p
         dv = torch.matmul(pm.transpose(-1, -2), dof)
@@ -341,8 +382,18 @@ def multihead_attention(
     key_padding_mask: Optional[torch.Tensor] = None,
     causal: bool = True,
 ) -> torch.Tensor:
-    """CPU tensors, and any tensor inside :func:`plain_attention` →
-    :func:`mha_reference`; CUDA tensors → the kernels."""
+    """With a context-parallel plan installed
+    (``ring_attention.set_context_plan``) and Lq = Lk divisible by its axis
+    size: the ring (``ops/ring_attention.py``), through the kernels on the
+    card and their plain forms on the CPU. Otherwise CPU tensors, and any
+    tensor inside :func:`plain_attention` → :func:`mha_reference`; CUDA
+    tensors → the kernels."""
+    from dr4sr_tpu_torch.ops import ring_attention
+
+    axis = ring_attention.get_context_plan()
+    if (axis is not None and axis.size > 1 and q.shape[2] == k.shape[2]
+            and q.shape[2] % axis.size == 0):
+        return ring_attention.ring_attention(q, k, v, key_padding_mask, causal, axis=axis)
     if q.device.type == "cpu" or _PLAIN.get():
         return mha_reference(q, k, v, key_padding_mask, causal)
     if q.device.type == "cuda":

@@ -1,0 +1,225 @@
+"""Collectives over one mesh axis, and the gradients JAX's autodiff gives them.
+
+JAX differentiates ``psum``, ``all_gather`` and ``ppermute`` itself; here
+each differentiable collective is a ``torch.autograd.Function`` whose
+backward rule is written out:
+
+* :func:`all_reduce_sum` — forward: the sum over the axis. Backward:
+  identity. Every rank of the axis then holds the same sum and computes
+  the same loss from it, so the cotangent each rank receives already is
+  the whole cotangent of the sum; summing it over the axis again (what
+  ``torch.distributed.nn.all_reduce`` does in its backward) would scale
+  the gradient by the axis size. This is JAX's rule for a ``psum`` whose
+  result is used replicated (``ep_gather``'s, ``parallel/ep.py``).
+* :func:`gather_seq` — forward: all-gather of the ranks' chunks along
+  ``dim``, in rank order. Backward: the rank's own chunk of the (replicated)
+  cotangent, no communication.
+* :func:`split_seq` — forward: the rank's chunk along ``dim`` of a
+  replicated tensor, no communication. Backward: all-gather of the chunks'
+  cotangents.
+
+The plain collectives below (:func:`all_reduce_`, :func:`all_gather`,
+:func:`broadcast_`, :func:`gather_objects`, :func:`ring_exchange`) take no
+gradient.
+
+Every call adds to :data:`COUNTER`, by kind and axis, its calls and the
+bytes of its result on this rank (an all-reduce: the tensor; an all-gather:
+the gathered tensor; a ring exchange: the tensors sent). The tests read the
+counter where the JAX package's tests read collective ops out of the
+compiled HLO.
+
+A world of one (``Axis.size == 1``) makes no call and counts nothing.
+
+Point-to-point sends of CUDA tensors go through pinned host memory when the
+axis's backend is gloo (decided by the backend's name, never by catching an
+error): gloo's send and receive take host memory. Every other collective
+takes the tensors where they are.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from collections import defaultdict
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import torch
+import torch.distributed as dist
+
+
+@dataclasses.dataclass(frozen=True)
+class Axis:
+    """One axis of the mesh as this rank sees it: its name, process group
+    (None for a world of one), size, this rank's index on it, and the global
+    ranks of the group in index order."""
+
+    name: str
+    group: Optional[dist.ProcessGroup] = None
+    size: int = 1
+    index: int = 0
+    ranks: Tuple[int, ...] = (0,)
+
+    @property
+    def backend(self) -> Optional[str]:
+        return None if self.group is None else str(dist.get_backend(self.group))
+
+    def chunk(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """This rank's contiguous 1/size of ``x`` along ``dim``."""
+        n = x.shape[dim]
+        if n % self.size:
+            raise ValueError(f"axis {self.name!r} of size {self.size} does not divide {n}")
+        c = n // self.size
+        return x.narrow(dim, self.index * c, c)
+
+
+LOCAL = Axis("local")  # the axis of one rank: every collective is the identity
+
+
+class CollectiveCounter:
+    """Calls and result bytes of each kind of collective, by axis."""
+
+    def __init__(self) -> None:
+        self.reset()
+
+    def reset(self) -> None:
+        self.calls: Dict[Tuple[str, str], int] = defaultdict(int)
+        self.bytes: Dict[Tuple[str, str], int] = defaultdict(int)
+
+    def add(self, kind: str, axis: Axis, nbytes: int) -> None:
+        self.calls[(kind, axis.name)] += 1
+        self.bytes[(kind, axis.name)] += int(nbytes)
+
+    def snapshot(self) -> Dict[str, Dict[str, int]]:
+        """``{"<kind>:<axis>": {"calls": n, "bytes": b}}``."""
+        return {f"{kind}:{axis}": {"calls": self.calls[(kind, axis)],
+                                   "bytes": self.bytes[(kind, axis)]}
+                for kind, axis in sorted(self.calls)}
+
+
+COUNTER = CollectiveCounter()
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
+def all_reduce_(t: torch.Tensor, axis: Axis, op=dist.ReduceOp.SUM) -> torch.Tensor:
+    """In-place all-reduce of ``t`` over ``axis`` (sum by default); no gradient."""
+    if axis.size > 1:
+        dist.all_reduce(t, op=op, group=axis.group)
+        COUNTER.add("all_reduce", axis, _nbytes(t))
+    return t
+
+
+def all_gather(t: torch.Tensor, axis: Axis, dim: int = 0) -> torch.Tensor:
+    """The ranks' ``t`` concatenated along ``dim`` in rank order; no gradient."""
+    if axis.size == 1:
+        return t
+    t = t.contiguous()
+    parts = [torch.empty_like(t) for _ in range(axis.size)]
+    dist.all_gather(parts, t, group=axis.group)
+    out = torch.cat(parts, dim=dim)
+    COUNTER.add("all_gather", axis, _nbytes(out))
+    return out
+
+
+def broadcast_(t: torch.Tensor, axis: Axis, src_index: int = 0) -> torch.Tensor:
+    """``t`` of the rank at ``src_index`` on the axis, in place on every rank."""
+    if axis.size > 1:
+        dist.broadcast(t, src=axis.ranks[src_index], group=axis.group)
+        COUNTER.add("broadcast", axis, _nbytes(t))
+    return t
+
+
+def gather_objects(obj, axis: Axis) -> list:
+    """Every rank's picklable ``obj``, in rank order (a checkpoint's
+    per-rank generator states); counts its calls, not its bytes."""
+    if axis.size == 1:
+        return [obj]
+    out = [None] * axis.size
+    dist.all_gather_object(out, obj, group=axis.group)
+    COUNTER.add("gather_objects", axis, 0)
+    return out
+
+
+def stages_through_host(axis: Axis, t: torch.Tensor) -> bool:
+    """Whether :func:`ring_exchange` copies ``t`` through pinned host memory:
+    a CUDA tensor on a gloo axis."""
+    return t.is_cuda and axis.backend == "gloo"
+
+
+def ring_exchange(tensors: Sequence[torch.Tensor], axis: Axis) -> List[torch.Tensor]:
+    """Send each tensor to the next rank of the ring (index + 1) and receive
+    the previous rank's, in one batch of point-to-point operations; returns
+    the received tensors (new storage). No gradient."""
+    if axis.size == 1:
+        return [t.clone() for t in tensors]
+    nxt = axis.ranks[(axis.index + 1) % axis.size]
+    prv = axis.ranks[(axis.index - 1) % axis.size]
+    ops, received = [], []
+    for t in tensors:
+        t = t.contiguous()
+        staged = stages_through_host(axis, t)
+        send = t.to("cpu").pin_memory() if staged else t
+        recv = torch.empty(send.shape, dtype=send.dtype, device=send.device,
+                           pin_memory=staged)
+        ops.append(dist.P2POp(dist.isend, send, nxt, axis.group))
+        ops.append(dist.P2POp(dist.irecv, recv, prv, axis.group))
+        received.append((recv, t.device, staged))
+        COUNTER.add("send", axis, _nbytes(t))
+    for work in dist.batch_isend_irecv(ops):
+        work.wait()
+    return [r.to(device, non_blocking=False) if staged else r for r, device, staged in received]
+
+
+class _AllReduceSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis):
+        return all_reduce_(x.clone(), axis)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+class _GatherSeq(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis, dim):
+        ctx.axis, ctx.dim = axis, dim
+        return all_gather(x, axis, dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return ctx.axis.chunk(grad, ctx.dim).contiguous(), None, None
+
+
+class _SplitSeq(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis, dim):
+        ctx.axis, ctx.dim = axis, dim
+        return axis.chunk(x, dim).contiguous()
+
+    @staticmethod
+    def backward(ctx, grad):
+        return all_gather(grad, ctx.axis, ctx.dim), None, None
+
+
+def all_reduce_sum(x: torch.Tensor, axis: Axis) -> torch.Tensor:
+    """Sum over ``axis``; its gradient passes through unchanged (see above)."""
+    if axis.size == 1:
+        return x
+    return _AllReduceSum.apply(x, axis)
+
+
+def gather_seq(x: torch.Tensor, axis: Axis, dim: int = 2) -> torch.Tensor:
+    """All-gather of the ranks' chunks along ``dim``; the gradient of each
+    rank's chunk is its slice of the gathered tensor's gradient."""
+    if axis.size == 1:
+        return x
+    return _GatherSeq.apply(x, axis, dim)
+
+
+def split_seq(x: torch.Tensor, axis: Axis, dim: int = 2) -> torch.Tensor:
+    """This rank's chunk along ``dim``; the gradient is all-gathered."""
+    if axis.size == 1:
+        return x
+    return _SplitSeq.apply(x, axis, dim)

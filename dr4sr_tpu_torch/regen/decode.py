@@ -16,9 +16,14 @@ loops over the same shapes, and every one of the ``max_len - 1`` steps runs
 even when every lane is done. The per-step uniform draws for γ > 0 come
 from a ``torch.Generator``, or as ``draws`` [max_len - 1, B] (a beam search
 draws one per source, as JAX does). Decoding runs where the generator's
-weights are, in eval mode, without gradients. The JAX version's
-``mesh_plan`` (decode lanes sharded over a device mesh) is not ported: one
-card here; multi-GPU is a later slice.
+weights are, in eval mode, without gradients.
+
+``decode_dataset(..., mesh_plan=)`` shards the lanes over the ``data`` axis
+(JAX's ``decode.py:304``, ``:327-331``): each rank decodes a contiguous
+share of every batch's lanes, the γ draws [max_len − 1, B] are drawn for
+the whole batch on every rank and sliced, and the token buffers are
+all-gathered, so every rank returns the same list, the one one process
+returns.
 """
 
 from __future__ import annotations
@@ -30,6 +35,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from dr4sr_tpu_torch.ops.topk import top_k_stable
+from dr4sr_tpu_torch.parallel.collectives import all_gather
+from dr4sr_tpu_torch.parallel.mesh import DATA_AXIS, MeshPlan
 from dr4sr_tpu_torch.regen.generator import NEG, Generator
 
 
@@ -149,13 +157,6 @@ def greedy_decode_batch_cached(
     return buf
 
 
-def _top_k_stable(x: torch.Tensor, k: int):
-    """The k largest along the last axis, equal values in index order (as
-    ``lax.top_k``); ``torch.topk`` leaves the order of ties open."""
-    values, idx = torch.sort(x, dim=-1, descending=True, stable=True)
-    return values[..., :k], idx[..., :k]
-
-
 @torch.no_grad()
 def beam_decode_batch_cached(
     generator: Generator,
@@ -200,7 +201,7 @@ def beam_decode_batch_cached(
         forced_tok = torch.where(done, 0, generator.eos)
         forced_cand = torch.where(F.one_hot(forced_tok, vocab).bool(), scores[..., None], NEG)
         cand = torch.where((done | dead)[..., None], forced_cand, cand)
-        scores, top_idx = _top_k_stable(cand.reshape(b, w * vocab), w)
+        scores, top_idx = top_k_stable(cand.reshape(b, w * vocab), w)
         parent = top_idx // vocab
         nxt = top_idx % vocab
         buf, emitted, done = buf[rows, parent], emitted[rows, parent], done[rows, parent]
@@ -236,18 +237,24 @@ def decode_dataset(
     use_kv_cache: bool = True,
     precision: str = "fp32",
     beam_width: int = 1,
+    mesh_plan: Optional[MeshPlan] = None,
 ) -> List[List[int]]:
     """Decode every sequence under every condition, on the device of the
     generator's weights; the regenerated item lists (SOS/EOS stripped), in
     the order condition-major, then sequence. The last chunk of each pass is
     padded to ``batch_size`` with all-zero sources, which the encoder sees
     as fully masked rows. ``precision='bf16'`` decodes with a bfloat16 copy
-    of the weights (argmax may flip on near-tied logits; opt-in)."""
+    of the weights (argmax may flip on near-tied logits; opt-in). Under
+    ``mesh_plan`` every ``data`` rank decodes its share of each batch's
+    lanes (``batch_size`` padded up to a multiple of the axis) and returns
+    the same list."""
     if precision == "bf16":
         generator = copy.deepcopy(generator).to(torch.bfloat16)
     elif precision != "fp32":
         raise ValueError(f"precision must be fp32 or bf16, got {precision!r}")
     device = generator.item_embedding.weight.device
+    data = (mesh_plan or MeshPlan()).axis(DATA_AXIS)
+    lanes = -(-batch_size // data.size) * data.size
     rng = torch.Generator(device=device).manual_seed(seed)
     src_all = frame_sources(sequences, generator, max_src)
     n = len(sequences)
@@ -256,16 +263,21 @@ def decode_dataset(
         for start in range(0, n, batch_size):
             chunk = src_all[start : start + batch_size]
             real = len(chunk)
-            if real < batch_size:
-                chunk = np.concatenate([chunk, np.zeros((batch_size - real, max_src), np.int64)])
-            src = torch.from_numpy(chunk).to(device)
-            condition = torch.full((batch_size,), cond, dtype=torch.long, device=device)
+            if real < lanes:
+                chunk = np.concatenate([chunk, np.zeros((lanes - real, max_src), np.int64)])
+            src = data.chunk(torch.from_numpy(chunk), 0).to(device)
+            condition = torch.full((src.shape[0],), cond, dtype=torch.long, device=device)
+            # the whole batch's draws on every rank, this rank's lanes kept
+            draws = _lane_draws(gamma, None, rng, max_len - 1, lanes, device)
+            if draws is not None:
+                draws = data.chunk(draws, 1)
             if beam_width > 1:
                 buf = beam_decode_batch_cached(generator, src, condition, max_len, gamma,
-                                               beam_width, rng=rng)
+                                               beam_width, draws=draws)
             else:
                 fn = greedy_decode_batch_cached if use_kv_cache else greedy_decode_batch
-                buf = fn(generator, src, condition, max_len, gamma, rng=rng)
+                buf = fn(generator, src, condition, max_len, gamma, draws=draws)
+            buf = all_gather(buf, data, dim=0)
             body = buf[:real, 1:].cpu().numpy()  # skip SOS
             stop = (body == generator.eos) | (body == 0)
             first = np.where(stop.any(1), stop.argmax(1), body.shape[1])

@@ -2,7 +2,8 @@
 
 Port of ``dr4sr_tpu/train/callbacks.py`` (reference ``utils/callbacks.py``,
 ``EarlyStopping:12``, ``Analyzer:141``). :class:`EarlyStopping` keeps the
-best params as a CPU state_dict and writes the best checkpoint;
+best params as a CPU state_dict and writes the best checkpoint (process 0
+alone, under a mesh);
 :class:`Analyzer` buckets per-user metrics by history length and returns the
 summary (the reference's matplotlib figure waits for a later slice).
 """
@@ -17,6 +18,7 @@ from typing import Dict, List, Mapping, Optional
 import numpy as np
 import torch
 
+from dr4sr_tpu_torch.parallel.mesh import process_index
 from dr4sr_tpu_torch.train.checkpoint import save_checkpoint
 
 logger = logging.getLogger("dr4sr_tpu_torch")
@@ -66,7 +68,10 @@ class EarlyStopping:
             self._counter = 0
             self.best_params = {k: v.detach().to("cpu", copy=True) for k, v in params.items()}
             logger.info(f"{self.monitor} improved. Best value: {value:.4f}")
-            if self.save_dir is not None:
+            # single-writer rule under a mesh: every rank holds the same
+            # replicated params and reduced metrics, so process 0 writes the
+            # best checkpoint and the rest keep only the snapshot
+            if self.save_dir is not None and process_index() == 0:
                 save_checkpoint(self.checkpoint_path, self.best_params, config,
                                 self.model_name, epoch, {self.monitor: value})
         else:

@@ -86,12 +86,20 @@ class MetaTrainer(Trainer):
         device="cuda",
         config_dir: Optional[str] = None,
         sub_config: Optional[Dict[str, Any]] = None,
+        mesh_plan=None,
     ) -> None:
         """``config`` is the MetaModel config. The sub-model's comes from
         ``configs/<sub_model>.yaml`` with the CLI's explicit overrides
         (``config["_cli_overrides"]``, stashed by ``run.py``) applied, unless
         ``sub_config`` gives it ready; either way it takes ``config``'s data
-        section, so the sub-model trains on the same files."""
+        section, so the sub-model trains on the same files. A ``mesh_plan``
+        of more than one rank is refused."""
+        if mesh_plan is not None and mesh_plan.data_size * mesh_plan.model_size > 1:
+            raise NotImplementedError(
+                "MetaModel (DR4SR+) at world size > 1: the outer step's Hessian-vector "
+                "products take torch.autograd.grad, which makes none of the gradient "
+                "all-reduces over the data group that the plain step makes; train it on "
+                "one device")
         if sub_config is None:
             sub_config = load_config(config["model"]["sub_model"], config["data"]["dataset"],
                                      config_dir=config_dir,
@@ -112,7 +120,7 @@ class MetaTrainer(Trainer):
                 f"sub_model {sub_name!r} adds an aux_loss, which the weighted inner loss "
                 f"leaves out (as the JAX package's does); DR4SR+ is ported for SASRec, "
                 f"GRU4Rec, FMLP and the CL4SRec models")
-        super().__init__(sub_config, datasets, workdir=workdir, device=device)
+        super().__init__(sub_config, datasets, workdir=workdir, device=device, mesh_plan=mesh_plan)
         self.model_name = "MetaModel"
 
         cfg_t, cfg_m = config["train"], config["model"]

@@ -40,8 +40,36 @@ is refused up front (``fused.capture_refusal``).
 DR4SR+ (``MetaModel``, ``is_meta``) trains under the subclass
 ``train.meta_trainer.MetaTrainer``, which ``quickstart.make_trainer`` picks;
 a plain ``Trainer`` refuses it. Not ported yet, and refused with a clear
-error: ``model.context_parallel > 1`` (the multi-GPU slice),
-``train.tensorboard_dir`` and ``train.profile_epoch``.
+error: ``train.tensorboard_dir`` and ``train.profile_epoch``.
+
+Several devices (``mesh_plan``, a ``parallel.mesh.MeshPlan``; one process a
+rank), as the JAX trainer places them (its ``:67-72``, ``:118-144``,
+``:188-216``, ``:237-261``, ``:362-407``):
+
+* every rank builds the same global host batch, pads it to a multiple of
+  the ``data`` axis (``valid=False``) and keeps its rows; negatives are
+  drawn for the global batch from generators in lockstep; the loss divides
+  by the global count; after the backward the gradients (and the loss) are
+  summed over the ``data`` group in one all-reduce, so at dropout 0 W ranks
+  take the steps one process takes. Dropout draws from each rank's default
+  generator, seeded ``seed + 1 + 7919 · data index``: the ranks of one
+  ``model`` group draw the same masks (they compute the same rows), and the
+  ``data`` ranks draw apart;
+* ``shard_embedding`` row-shards the item table over ``model``
+  (``parallel/ep.py``): each rank holds N/S rows of the padded table, and
+  eval takes ``ops.topk.sharded_masked_topk``; every other parameter is
+  replicated and broadcast from rank 0;
+* ``model.context_parallel = n`` (n the ``model`` axis size) routes encoder
+  attention through the ring (``ops/ring_attention.py``);
+* eval: per-sample metric sums and the count are summed over ``data``
+  before the host divides, so early stopping decides on the same value on
+  every rank; process 0 alone writes checkpoints, state and logs, with the
+  table gathered (and saved padded, as the JAX trainer's ``device_get``
+  saves it).
+
+At world size > 1 these are refused with a ``NotImplementedError`` that
+says why: ``train.steps_per_dispatch > 1``, a model with ``contrastive`` or
+``aux_loss``, GNN under EP, and DR4SR+ (``MetaTrainer``).
 """
 
 from __future__ import annotations
@@ -63,10 +91,23 @@ import torch
 from dr4sr_tpu_torch import evaluation
 from dr4sr_tpu_torch.data.dataset import SeqDataset
 from dr4sr_tpu_torch.models import get_model_class
-from dr4sr_tpu_torch.models.base import RecModel
+from dr4sr_tpu_torch.models.base import RecModel, item_table
 from dr4sr_tpu_torch.models.cl4srec import cl_loss
 from dr4sr_tpu_torch.models.fmlp import expand_prefix_rows, pre_pad_batch
 from dr4sr_tpu_torch.models.gnn import build_transition_graph
+from dr4sr_tpu_torch.ops import ring_attention
+from dr4sr_tpu_torch.ops.topk import sharded_masked_topk
+from dr4sr_tpu_torch.parallel import ep
+from dr4sr_tpu_torch.parallel.collectives import all_gather, all_reduce_, gather_objects
+from dr4sr_tpu_torch.parallel.mesh import (
+    DATA_AXIS,
+    MODEL_AXIS,
+    MeshPlan,
+    pad_batch_to_multiple,
+    process_index,
+    replicate,
+    shard_batch,
+)
 from dr4sr_tpu_torch.train.callbacks import Analyzer, EarlyStopping
 from dr4sr_tpu_torch.train.checkpoint import load_checkpoint
 from dr4sr_tpu_torch.train.fused import StepGraphs, capture_refusal, stack_batches, step_batches
@@ -75,6 +116,9 @@ logger = logging.getLogger("dr4sr_tpu_torch")
 
 # CL4SRec2's views read the original train file with this seed offset
 _ORIGINAL_LOADER_SEED = 7919
+# the dropout stream of data rank d is seeded seed + 1 + d * this
+_DROPOUT_RANK_STRIDE = 7919
+_TABLE = "item_embedding.weight"
 _UNPORTED_TRAIN_KEYS = ("tensorboard_dir", "profile_epoch")
 
 
@@ -162,6 +206,7 @@ class Trainer:
         datasets: Tuple[SeqDataset, SeqDataset, SeqDataset],
         workdir: Optional[str] = None,
         device="cuda",
+        mesh_plan: Optional[MeshPlan] = None,
     ) -> None:
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
@@ -169,6 +214,7 @@ class Trainer:
         self.config = config
         self.train_data, self.val_data, self.test_data = datasets
         self.workdir = workdir
+        self.plan = mesh_plan or MeshPlan()
 
         self.model_name = config["model"]["model"]
         self.model_class = get_model_class(self.model_name)
@@ -178,10 +224,10 @@ class Trainer:
                 f"dr4sr_tpu_torch.train.meta_trainer.MetaTrainer, which "
                 f"dr4sr_tpu_torch.quickstart.make_trainer picks for it")
         cp = int(config["model"].get("context_parallel", 1))
-        if cp > 1:
-            raise NotImplementedError(
-                f"model.context_parallel={cp} needs a mesh, which comes with the multi-GPU "
-                f"slice of dr4sr_tpu_torch; use 1 or the JAX package")
+        if cp > 1 and self.plan.model_size != cp:
+            raise ValueError(
+                f"model.context_parallel={cp} needs a mesh with a model axis of that size "
+                f"(got {self.plan.data_size} x {self.plan.model_size})")
         cfg_t = config["train"]
         for key in _UNPORTED_TRAIN_KEYS:
             if cfg_t.get(key) is not None:
@@ -201,6 +247,12 @@ class Trainer:
         if prec not in ("fp32", "float32", "bf16", "bfloat16"):
             raise ValueError(f"train.precision must be fp32 or bf16, got {prec!r}")
         self.compute_dtype = torch.bfloat16 if prec.startswith("bf") else None
+        self._refuse_on_mesh()
+        # the plans installed around every step and eval: EP's (the table
+        # row-sharded) and CP's (the ring over the model axis)
+        self._ep_plan = self.plan if self.plan.ep_sharded() else None
+        self._cp_plan = self.plan if cp > 1 else None
+        self.data_axis = self.plan.axis(DATA_AXIS) if self.plan.data_size > 1 else None
 
         self.contrastive = bool(getattr(self.model_class, "contrastive", False))
         self.aug_from_original = bool(getattr(self.model_class, "aug_from_original", False))
@@ -233,6 +285,38 @@ class Trainer:
         self._loss_sum = torch.zeros((), device=self.device)
         self._graphs: Optional[StepGraphs] = None  # the fused groups' CUDA graphs
 
+    @property
+    def world_size(self) -> int:
+        return self.plan.data_size * self.plan.model_size
+
+    def _refuse_on_mesh(self) -> None:
+        """The refusals at world size > 1, each with its reason."""
+        if self.world_size == 1:
+            return
+        name = self.model_name
+        if self.steps_per_dispatch > 1:
+            raise NotImplementedError(
+                f"train.steps_per_dispatch={self.steps_per_dispatch} at world size "
+                f"{self.world_size}: a CUDA graph of the steps would hold the collectives "
+                f"(the gradient all-reduce, the EP gathers, the ring), which the port "
+                f"does not capture yet; use 1")
+        if getattr(self.model_class, "contrastive", False) or getattr(
+                self.model_class, "aux_loss", None) is not None:
+            raise NotImplementedError(
+                f"{name} at world size {self.world_size}: its contrastive or auxiliary "
+                f"loss compares rows across the global batch (in-batch InfoNCE), which "
+                f"needs an all-gather of the views that the port does not make yet")
+        if self.plan.ep_sharded() and getattr(self.model_class, "needs_graph", False):
+            raise NotImplementedError(
+                f"{name} with a row-sharded item table: its graph propagation reads the "
+                f"whole table; shard the batch (data parallelism) only")
+
+    @contextlib.contextmanager
+    def _mesh_plans(self):
+        """The EP and CP plans of this trainer installed for the body."""
+        with ep.ep_plan(self._ep_plan), ring_attention.context_plan(self._cp_plan):
+            yield
+
     # ------------------------------------------------------------------ graph
     def _build_graph(self) -> None:
         """``model.graph`` 'old': the val rows without their last item;
@@ -253,17 +337,68 @@ class Trainer:
         optimizer, and the step's generators seeded from ``seed + 1``. The
         weights are drawn on the CPU, so every device starts from the same."""
         seed = int(self.config["train"].get("seed", 2023)) if seed is None else seed
-        module = self.model_class.build(self.config, self.num_items,
-                                        generator=torch.Generator().manual_seed(seed))
-        self.rec = RecModel(self.config, module.to(self.device), self.num_items, self.num_users)
+        with self._mesh_plans():  # under EP the table is declared padded
+            module = self.model_class.build(self.config, self.num_items,
+                                            generator=torch.Generator().manual_seed(seed))
+        module = module.to(self.device)
+        self._place(module)
+        self.rec = RecModel(self.config, module, self.num_items, self.num_users,
+                            data_axis=self.data_axis)
         self.optimizer = make_optimizer(module.parameters(), self.config["train"],
                                         capturable=self._captures)
         self._graphs = None
         self.step = 0
-        # negatives from their own generator; dropout from the default ones
+        # negatives from their own generator, in lockstep on every rank;
+        # dropout from the default ones, apart on each data rank
         self.generator = torch.Generator(device=self.device).manual_seed(seed + 1)
-        torch.manual_seed(seed + 1)
+        data_index = 0 if self.data_axis is None else self.data_axis.index
+        torch.manual_seed(seed + 1 + _DROPOUT_RANK_STRIDE * data_index)
         return self.rec
+
+    def _place(self, module: torch.nn.Module) -> None:
+        """Parameter placement under a mesh: every parameter takes rank 0's
+        values; under EP the item table then keeps this rank's rows."""
+        if self.plan.mesh is None:
+            return
+        replicate(module.parameters(), self.plan)
+        if self._ep_plan is not None:
+            emb = module.item_embedding
+            emb.weight = torch.nn.Parameter(
+                emb.weight.detach()[self.plan.row_slice(emb.weight.shape[0])].clone())
+
+    def _local_table(self, table: torch.Tensor) -> torch.Tensor:
+        """A full item table (or a per-row state of it), padded or not, cut
+        or zero-padded to the module's rows and, under EP, to this rank's
+        slice of the padded table."""
+        local = self.rec.module.item_embedding.weight.shape[0]
+        full = local * (self.plan.model_size if self._ep_plan else 1)
+        table = table[:full]
+        if table.shape[0] < full:
+            table = torch.cat([table, table.new_zeros(full - table.shape[0], table.shape[1])])
+        return table[self.plan.row_slice(full)] if self._ep_plan else table
+
+    def _local_params(self, params: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """A full state_dict (a checkpoint's, or :meth:`full_state_dict`'s) as
+        this rank's module holds it (:meth:`_local_table`)."""
+        if _TABLE not in params:
+            return params
+        return {**params, _TABLE: self._local_table(params[_TABLE])}
+
+    def full_state_dict(self) -> Dict[str, torch.Tensor]:
+        """The module's state_dict with a row-sharded table gathered over
+        ``model`` (padded, as saved); on every rank."""
+        state = self.rec.module.state_dict()
+        if self._ep_plan is not None:
+            state = dict(state)
+            state[_TABLE] = all_gather(state[_TABLE], self.plan.axis(MODEL_AXIS), dim=0)
+        return state
+
+    def set_params(self, params: Dict[str, torch.Tensor]) -> None:
+        """Load a full state_dict (any table padding) into the module, as
+        this rank holds it."""
+        if self.rec is None:
+            raise RuntimeError("call init_state() first")
+        self.rec.module.load_state_dict(self._local_params(params))
 
     # ------------------------------------------------------------ batch plumbing
     def host_transform(self, batch: Dict[str, np.ndarray],
@@ -274,10 +409,21 @@ class Trainer:
             return pre_pad_batch(batch)
         return batch
 
+    def host_shard(self, batch: Dict[str, np.ndarray],
+                   is_train: bool = False) -> Dict[str, np.ndarray]:
+        """:meth:`host_transform`, then under a mesh this rank's rows of the
+        global batch padded to a multiple of the ``data`` axis."""
+        batch = self.host_transform(batch, is_train)
+        if self.plan.data_size > 1:
+            batch = shard_batch(pad_batch_to_multiple(batch, self.plan.data_size), self.plan)
+        return batch
+
     def device_batch(self, batch: Dict[str, np.ndarray],
                      is_train: bool = False) -> Dict[str, torch.Tensor]:
-        """A host batch on the device, after :meth:`host_transform`."""
-        batch = self.host_transform(batch, is_train)
+        """A host batch on the device, after :meth:`host_shard`."""
+        return self._to_device(self.host_shard(batch, is_train))
+
+    def _to_device(self, batch: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
         out = {}
         for k, v in batch.items():
             t = torch.from_numpy(np.ascontiguousarray(v))
@@ -326,19 +472,41 @@ class Trainer:
             loss = loss + aux_loss(self.rec.module, batch, model_cfg, self.num_items, aux_draws)
         return loss.float()
 
-    def _update(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+    def _update(self, batch: Dict[str, torch.Tensor],
+                neg_id: Optional[torch.Tensor] = None) -> torch.Tensor:
         """One optimizer step on a device batch, without the step count:
         what a CUDA graph of a group captures."""
         self.optimizer.zero_grad(set_to_none=True)
-        with self._autocast():
-            loss = self.loss(batch)
-        loss.backward()
+        with self._mesh_plans():
+            with self._autocast():
+                loss = self.loss(batch, neg_id=neg_id)
+            loss.backward()
+        loss = self._sum_over_data(loss.detach())
         self.optimizer.step()
-        return loss.detach()
+        return loss
 
-    def train_step(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
-        """One optimizer step on a device batch; returns the loss (on device)."""
-        loss = self._update(batch)
+    def _sum_over_data(self, loss: torch.Tensor) -> torch.Tensor:
+        """Under data parallelism, every gradient and the loss summed over
+        the ``data`` group in one all-reduce (each rank's loss is its share
+        of the global batch's); returns the global loss."""
+        if self.data_axis is None:
+            return loss
+        grads = [p.grad for p in self.rec.module.parameters() if p.grad is not None]
+        flat = torch.cat([g.reshape(-1) for g in grads] + [loss.reshape(1).float()])
+        all_reduce_(flat, self.data_axis)
+        offset = 0
+        for g in grads:
+            g.copy_(flat[offset:offset + g.numel()].view_as(g))
+            offset += g.numel()
+        return flat[-1]
+
+    def train_step(self, batch: Dict[str, torch.Tensor],
+                   neg_id: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """One optimizer step on a device batch; returns the loss (on device;
+        the global batch's under a mesh). ``neg_id`` gives the negatives (this
+        rank's rows of the global batch's) in place of :attr:`generator`'s;
+        the gradients stay in the parameters' ``grad`` until the next step."""
+        loss = self._update(batch, neg_id)
         self.step += 1
         return loss
 
@@ -442,10 +610,30 @@ class Trainer:
 
     # --------------------------------------------------------------- eval step
     @torch.no_grad()
+    def eval_topk(self, batch, keep_mask, rec: Optional[RecModel] = None):
+        """(scores, items) [B, eval.topk] of a device batch (this rank's
+        rows), over the whole catalog; under EP through
+        ``sharded_masked_topk``."""
+        rec = rec or self.rec
+        k = int(self.config["eval"]["topk"])
+        with self._mesh_plans():
+            if self._ep_plan is None:
+                return rec.topk(batch, k, item_keep_mask=keep_mask)
+            # the padded rows' keep_mask is False, so they never surface
+            table = item_table(rec.module)
+            keep = torch.zeros(table.shape[0] * self.plan.model_size, dtype=torch.bool,
+                               device=keep_mask.device)
+            keep[: self.num_items] = keep_mask
+            return sharded_masked_topk(
+                rec.encode_eval(batch), table, min(k, self.num_items),
+                self.plan.axis(MODEL_AXIS), keep[self.plan.row_slice(keep.shape[0])],
+                batch.get("user_hist"))
+
+    @torch.no_grad()
     def _eval_metrics(self, rec: RecModel, batch, keep_mask) -> Dict[str, torch.Tensor]:
         cfg_e = self.config["eval"]
         cutoffs = tuple(int(c) for c in cfg_e["cutoff"])
-        _, topk_items = rec.topk(batch, int(cfg_e["topk"]), item_keep_mask=keep_mask)
+        _, topk_items = self.eval_topk(batch, keep_mask, rec)
         pred = batch["item_id"][:, None] == topk_items  # [B, k] bool
         return evaluation.compute_rank_metrics(pred, batch["label"], cfg_e["val_metrics"],
                                                cutoffs)
@@ -453,8 +641,10 @@ class Trainer:
     def _eval_epoch(self, dataset: SeqDataset, domain: str, rec: Optional[RecModel] = None,
                     with_analyzer: bool = False) -> Dict[str, float]:
         """Metrics over ``domain``'s rows, averaged over the valid rows; the
-        sums stay on the device until the end. ``with_analyzer`` also buckets
-        the per-sample metrics by history length (``self._last_analyzer``)."""
+        sums stay on the device until the end, where under data parallelism
+        they and the count are summed over ``data`` in one all-reduce.
+        ``with_analyzer`` also buckets the per-sample metrics by history
+        length (``self._last_analyzer``; this rank's rows)."""
         rec = rec or self.rec
         dataset.set_eval_domain(domain)
         keep_mask = torch.from_numpy(dataset.domain_item_mask(domain)).to(self.device)
@@ -462,7 +652,8 @@ class Trainer:
         count = torch.zeros((), device=self.device)
         analyzer = Analyzer() if with_analyzer else None
         for batch in dataset.get_loader():
-            dbatch = self.device_batch(batch)
+            batch = self.host_shard(batch)
+            dbatch = self._to_device(batch)
             per_sample = self._eval_metrics(rec, dbatch, keep_mask)
             valid = dbatch["valid"]
             for k, v in per_sample.items():
@@ -474,8 +665,13 @@ class Trainer:
                 analyzer.record_batch(batch["seqlen"], host, batch["valid"])
         if analyzer is not None:
             self._last_analyzer = analyzer
-        denom = max(float(count), 1.0)
-        return {k: float(v) / denom for k, v in sums.items()}
+        names = list(sums)
+        totals = torch.stack([sums[k] for k in names] + [count.float()])
+        if self.data_axis is not None:
+            all_reduce_(totals, self.data_axis)
+        totals = totals.tolist()
+        denom = max(totals[-1], 1.0)
+        return {k: v / denom for k, v in zip(names, totals)}
 
     def _eval_domains(self, dataset: SeqDataset, rec: Optional[RecModel] = None,
                       with_analyzer: bool = False) -> Dict[str, float]:
@@ -500,7 +696,7 @@ class Trainer:
             return self.rec
         # ``to`` re-flattens a GRU's weights for cuDNN, which a deepcopy does not
         module = copy.deepcopy(self.rec.module).to(self.device)
-        module.load_state_dict(params)
+        module.load_state_dict(self._local_params(params))
         return dataclasses.replace(self.rec, module=module)
 
     # ------------------------------------------------------------ observability
@@ -524,21 +720,50 @@ class Trainer:
     def _state_path(self) -> str:
         return os.path.join(self.run_dir(), "state_latest.pt")
 
+    def _table_moments(self, state: Dict[str, Any], fn) -> Dict[str, Any]:
+        """An optimizer state_dict with ``fn`` applied to the item table's
+        per-row state tensors (Adam's moments): gathered to save, cut to this
+        rank's rows to load. Identity without EP."""
+        if self._ep_plan is None:
+            return state
+        params = list(self.rec.module.parameters())
+        idx = next(i for i, p in enumerate(params) if p is self.rec.module.item_embedding.weight)
+        if idx not in state["state"]:
+            return state
+        moments = {k: fn(v) if torch.is_tensor(v) and v.dim() == 2 else v
+                   for k, v in state["state"][idx].items()}
+        return {**state, "state": {**state["state"], idx: moments}}
+
     def save_train_state(self, epoch: int) -> None:
         """Resumable snapshot: params, optimizer state, step, epoch and the
-        generators' states (the reference keeps only the best params)."""
+        generators' states (the reference keeps only the best params). Under
+        a mesh the table and its moments are gathered and process 0 writes,
+        with every rank's dropout generator state."""
+        model = self.plan.axis(MODEL_AXIS)
+        params = self.full_state_dict()
+        optim = self._table_moments(self.optimizer.state_dict(),
+                                    lambda t: all_gather(t, model, dim=0))
+        rngs = (torch.get_rng_state(),
+                torch.cuda.get_rng_state(self.device) if self.device.type == "cuda" else None)
+        rank_rngs = gather_objects(rngs, self.plan.world)
+        if process_index() != 0:
+            return
         path = self._state_path()
         os.makedirs(os.path.dirname(path), exist_ok=True)
         payload = {
-            "params": self.rec.module.state_dict(),
-            "optimizer": self.optimizer.state_dict(),
+            "params": params,
+            "optimizer": optim,
             "step": self.step,
             "epoch": int(epoch),
             "generator": self.generator.get_state(),
-            "torch_rng": torch.get_rng_state(),
+            "torch_rng": rngs[0],
         }
+        if self.world_size > 1:
+            payload["rank_torch_rng"] = [r[0] for r in rank_rngs]
         if self.device.type == "cuda":
-            payload["cuda_rng"] = torch.cuda.get_rng_state(self.device)
+            payload["cuda_rng"] = rngs[1]
+            if self.world_size > 1:
+                payload["rank_cuda_rng"] = [r[1] for r in rank_rngs]
         torch.save(payload, path)
 
     def restore_train_state(self) -> Optional[int]:
@@ -549,14 +774,17 @@ class Trainer:
         if self.rec is None:
             self.init_state()
         payload = torch.load(path, map_location="cpu", weights_only=True)
-        self.rec.module.load_state_dict(payload["params"])
-        self.optimizer.load_state_dict(payload["optimizer"])  # rebinds its state
+        self.set_params(payload["params"])
+        self.optimizer.load_state_dict(  # rebinds its state
+            self._table_moments(payload["optimizer"], self._local_table))
         self._graphs = None
         self.step = int(payload["step"])
         self.generator.set_state(payload["generator"])
-        torch.set_rng_state(payload["torch_rng"])
+        rank = process_index()
+        torch.set_rng_state(payload.get("rank_torch_rng", {rank: payload["torch_rng"]})[rank])
         if "cuda_rng" in payload and self.device.type == "cuda":
-            torch.cuda.set_rng_state(payload["cuda_rng"], self.device)
+            cuda_rng = payload.get("rank_cuda_rng", {rank: payload["cuda_rng"]})[rank]
+            torch.cuda.set_rng_state(cuda_rng, self.device)
         return int(payload["epoch"]) + 1
 
     # ----------------------------------------------------------------- fit/eval
@@ -597,14 +825,15 @@ class Trainer:
 
             logger.info(f"epoch {nepoch}: " + ", ".join(
                 f"{k}={v:.4f}" for k, v in self.logged_metrics.items() if isinstance(v, float)))
-            self._log_metrics_jsonl(self.logged_metrics)
+            if process_index() == 0:
+                self._log_metrics_jsonl(self.logged_metrics)
             if analyze:
                 logger.info(f"analyzer (by history length): {self._last_analyzer.summary()}")
-            if callback(self.rec.module.state_dict(), self.config, nepoch, self.logged_metrics):
+            if callback(self.full_state_dict(), self.config, nepoch, self.logged_metrics):
                 break
         self.callback = callback
         self.best_params = callback.best_params or {
-            k: v.detach().to("cpu", copy=True) for k, v in self.rec.module.state_dict().items()}
+            k: v.detach().to("cpu", copy=True) for k, v in self.full_state_dict().items()}
         return self.logged_metrics
 
     def evaluate(self) -> Dict[str, float]:

@@ -38,12 +38,22 @@ def _sources():
     yield os.path.join(REPO, "chip_smoke.py")
 
 
+# modules that must be among those imported (the multi-device layer's too)
+REQUIRED = ("dr4sr_tpu_torch.parallel.mesh", "dr4sr_tpu_torch.parallel.ep",
+            "dr4sr_tpu_torch.parallel.collectives", "dr4sr_tpu_torch.parallel.launch",
+            "dr4sr_tpu_torch.ops.ring_attention", "dr4sr_tpu_torch.ops.topk")
+
+
 def test_importing_the_port_loads_no_jax():
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
-    proc = subprocess.run([sys.executable, "-c", _PROBE], cwd=REPO, env=env,
+    probe = _PROBE.replace("print(len(names), bad)",
+                           "print(len(names), bad)\nprint(' '.join(names))")
+    proc = subprocess.run([sys.executable, "-c", probe], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert int(proc.stdout.split()[0]) >= 10  # every module was imported
+    imported = set(proc.stdout.splitlines()[-1].split())
+    assert set(REQUIRED) <= imported, sorted(set(REQUIRED) - imported)
 
 
 @pytest.mark.parametrize("path", sorted(_sources()), ids=lambda p: os.path.relpath(p, REPO))

@@ -110,6 +110,24 @@ Phases, in order; any failure raises and the script exits nonzero:
    K = 5 on 2 ranks, token for token as one rank's; step times of each run
    beside one rank's (host-staged gloo on one card: not a multi-GPU
    speed).
+12. tools: on the same data, the trainer's tooling: the dataset rebuilt
+   from its ``seq2pat_data.npz`` by ``python -m
+   dr4sr_tpu_torch.scripts.preprocess --from-seq2pat`` (a subprocess);
+   ``quickstart.run(device="cuda")`` of SASRec for 3 epochs with
+   ``train.tensorboard_dir`` and epoch 1 profiled: the log file's config,
+   epoch and test lines, the event file read back by a reader here (every
+   record's masked CRC-32C) equal to ``metrics.jsonl`` at f32, the
+   profiled epoch's trace holding as many forward and backward attention
+   kernel rows as the counters grew in it (2 a step each), launches of the
+   run and of every epoch, validation recall@20 above 5x random, the
+   analyzer's figure (or none without matplotlib); ``quickstart.tune``
+   over two learning rates, each run through both kernels and the best by
+   ``val_best``; the run's best checkpoint served by
+   ``Recommender.from_checkpoint``, then again with its item table padded
+   by a row as EP saves it (the same ids); a run at
+   ``train.steps_per_dispatch = 16`` whose profiled epoch holds the
+   kernels the graphs replay; each epoch's wall time with and without the
+   profiler.
 
 It prints one ``{"kernels": [...]}`` line, then as its last line
 ``{"ok": true, "device": {...}}``. It imports nothing of JAX. Kernel times
@@ -130,11 +148,16 @@ check caught each (a ``control {...}`` line per path and fault).
 
 from __future__ import annotations
 
+import contextlib
 import copy
+import glob
+import importlib.util
 import itertools
 import json
 import os
 import re
+import shutil
+import struct
 import subprocess
 import sys
 import tempfile
@@ -144,6 +167,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from dr4sr_tpu_torch import quickstart
 from dr4sr_tpu_torch.convert import generator_params_from_jax
 from dr4sr_tpu_torch.data.dataset import prepare_datasets
 from dr4sr_tpu_torch.data.synthetic import markov_sequences, write_synthetic_dataset
@@ -2605,6 +2629,365 @@ def dist(card, workdir, device="cuda"):
     return fwd, bwd
 
 
+# ------------------------------------------------------------------ 12. tools
+
+TOOLS_EPOCHS = 3
+TOOLS_PROFILE_EPOCH = 1  # epoch 0 before it, epoch 2 after it: both unprofiled
+TOOLS_LRS = [1e-3, 3e-3]  # tune's grid, one epoch a run
+TOOLS_SERVED = 2048  # test histories served from the checkpoint, plain and padded
+TOOLS_TIMEOUT_S = 900  # the phase's process, which takes well under a minute
+REPO_DIR = os.path.dirname(os.path.abspath(__file__))
+
+
+def _crc32c(data: bytes) -> int:
+    """CRC-32C (Castagnoli, reflected), bit by bit: independent of the
+    writer's table."""
+    crc = 0xFFFFFFFF
+    for byte in data:
+        crc ^= byte
+        for _ in range(8):
+            crc = (crc >> 1) ^ (0x82F63B78 if crc & 1 else 0)
+    return crc ^ 0xFFFFFFFF
+
+
+def _masked_crc32c(data: bytes) -> int:
+    crc = _crc32c(data)
+    return ((((crc >> 15) | (crc << 17)) & 0xFFFFFFFF) + 0xA282EAD8) & 0xFFFFFFFF
+
+
+def _proto_fields(buf: bytes):
+    """(field number, value) of each field of a protobuf message: varints as
+    ints, fixed32/64 and length-delimited fields as bytes."""
+    def varint(i):
+        shift = value = 0
+        while True:
+            b = buf[i]
+            value |= (b & 0x7F) << shift
+            i, shift = i + 1, shift + 7
+            if not b & 0x80:
+                return value, i
+
+    out, i = [], 0
+    while i < len(buf):
+        key, i = varint(i)
+        wire = key & 7
+        if wire == 0:
+            value, i = varint(i)
+        elif wire in (1, 5):
+            size = 8 if wire == 1 else 4
+            value, i = buf[i:i + size], i + size
+        elif wire == 2:
+            size, i = varint(i)
+            value, i = buf[i:i + size], i + size
+        else:
+            raise AssertionError(f"protobuf wire type {wire}")
+        out.append((key >> 3, value))
+    return out
+
+
+def read_scalars(path):
+    """{(step, tag): value} of a TensorBoard event file, each record's
+    length and payload checked against their masked CRC-32C; and the file
+    version of its first event."""
+    scalars, version = {}, None
+    with open(path, "rb") as f:
+        while header := f.read(8):
+            (n,) = struct.unpack("<Q", header)
+            (crc,) = struct.unpack("<I", f.read(4))
+            if crc != _masked_crc32c(header):
+                raise AssertionError(f"{path}: a record's length fails its CRC")
+            event = f.read(n)
+            (crc,) = struct.unpack("<I", f.read(4))
+            if crc != _masked_crc32c(event):
+                raise AssertionError(f"{path}: a record fails its CRC")
+            fields = dict(_proto_fields(event))
+            if 3 in fields:
+                version = fields[3].decode()
+                continue
+            for field, value in _proto_fields(fields[5]):  # summary: its values
+                value = dict(_proto_fields(value))
+                scalars[(fields.get(2, 0), value[1].decode())] = struct.unpack("<f", value[2])[0]
+    return scalars, version
+
+
+def _counts():
+    return flash_attention_fwd.launches, flash_attention_bwd.launches
+
+
+def _grown(before):
+    now = _counts()
+    return now[0] - before[0], now[1] - before[1]
+
+
+def _check_tools_launches(what, got, want):
+    if tuple(got) != tuple(want):
+        raise AssertionError(f"tools {what}: launches {got}, want {want}")
+
+
+def _trace_kernel_rows(directory):
+    """(forward, backward) attention kernel rows of the one trace in
+    ``directory`` (``torch.profiler.tensorboard_trace_handler``'s JSON)."""
+    (path,) = [os.path.join(directory, f) for f in os.listdir(directory)
+               if f.startswith("rank0.") and f.endswith(".pt.trace.json")]
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    names = [e["name"] for e in events if e.get("cat") == "kernel"]
+    return (sum("flash_fwd_kernel" in n for n in names),
+            sum("flash_bwd" in n for n in names), len(names))
+
+
+@contextlib.contextmanager
+def _watched_epochs(epochs, device):
+    """``Trainer._maybe_profile`` wrapped: each epoch's attention launches,
+    its training's wall time and the time with the trace written, by
+    epoch."""
+    original = Trainer._maybe_profile
+
+    @contextlib.contextmanager
+    def watched(self, nepoch):
+        before = _counts()
+        _sync(device)
+        t0 = time.perf_counter()
+        with original(self, nepoch):
+            yield
+            _sync(device)
+            train_s = time.perf_counter() - t0
+        epochs[nepoch] = {"launches": list(_grown(before)), "train_s": train_s,
+                          "with_trace_s": time.perf_counter() - t0}
+
+    Trainer._maybe_profile = watched
+    try:
+        yield
+    finally:
+        Trainer._maybe_profile = original
+
+
+@contextlib.contextmanager
+def _counted_runs(runs, device):
+    """``quickstart.run`` wrapped (``tune`` calls it): each run's learning
+    rate, launches, wall time and ``val_best``."""
+    original = quickstart.run
+
+    def counted(cfg, **kwargs):
+        before = _counts()
+        t0 = time.perf_counter()
+        out = original(cfg, **kwargs)
+        _sync(device)
+        runs.append({"learning_rate": cfg["train"]["learning_rate"],
+                     "launches": list(_grown(before)), "run_s": time.perf_counter() - t0,
+                     "val_best": out["val_best"]})
+        return out
+
+    quickstart.run = counted
+    try:
+        yield
+    finally:
+        quickstart.run = original
+
+
+def _tools_cfg(base, name, **train):
+    cfg = copy.deepcopy(TRAIN_CONFIG)
+    cfg["train"].update(train)
+    cfg["eval"]["save_path"] = os.path.join(base, name)
+    return cfg
+
+
+def tools_run(base, data_root, steps, eval_batches, result, device):
+    """``quickstart.run`` of SASRec for 3 epochs with TensorBoard scalars and
+    epoch 1 profiled: the log file, the event file against metrics.jsonl, the
+    trace's kernel rows against the counters, recall, the figure."""
+    layers = TRAIN_CONFIG["model"]["layer_num"]
+    cfg = _tools_cfg(base, "saved", epochs=TOOLS_EPOCHS, tensorboard_dir=os.path.join(base, "tb"),
+                     profile_epoch=TOOLS_PROFILE_EPOCH,
+                     profile_dir=os.path.join(base, "profile"))
+    epochs = {}
+    before = _counts()
+    t0 = time.perf_counter()
+    with _watched_epochs(epochs, device):
+        out = quickstart.run(cfg, root=data_root, device=device)
+    _sync(device)
+    run = {"run_s": time.perf_counter() - t0, "launches": list(_grown(before)),
+           "test": {k: out[k] for k in ("ndcg@20", "recall@20")}, "val_best": out["val_best"],
+           "epochs": epochs}
+    result["run"] = run
+    _check_tools_launches("run", run["launches"],
+                          (layers * (TOOLS_EPOCHS * steps + (TOOLS_EPOCHS + 1) * eval_batches),
+                           layers * TOOLS_EPOCHS * steps))
+    for nepoch, epoch in epochs.items():
+        _check_tools_launches(f"epoch {nepoch}", epoch["launches"], (layers * steps,) * 2)
+
+    (log_path,) = glob.glob(os.path.join(base, "log", "SASRec", "amazon-toys", "*.log"))
+    with open(log_path) as f:
+        text = f.read()
+    for want in ("INFO config: {", "INFO epoch 0: ", "INFO epoch 1: ", "INFO test: {"):
+        if want not in text:
+            raise AssertionError(f"tools: the log file {log_path} lacks {want!r}")
+    result["log_lines"] = len(text.splitlines())
+
+    run_dir = os.path.join(base, "saved", "SASRec", "amazon-toys")
+    with open(os.path.join(run_dir, "metrics.jsonl")) as f:
+        records = [json.loads(line) for line in f]
+    (events,) = glob.glob(os.path.join(base, "tb", "events.out.tfevents.*"))
+    scalars, version = read_scalars(events)
+    want = {(r["epoch"], k): float(np.float32(v)) for r in records for k, v in r.items()
+            if isinstance(v, float)}
+    result["scalars"] = len(scalars)
+    if version != "brain.Event:2" or scalars != want:
+        raise AssertionError(f"tools: the event file's {len(scalars)} scalars ({version}) are "
+                             f"not metrics.jsonl's {len(want)} at f32")
+    random_recall = 20 / (NUM_ITEMS - 1)
+    run["val_recall@20"] = records[-1]["recall@20"]
+    if not run["val_recall@20"] > 5 * random_recall:
+        raise AssertionError(f"tools: validation recall@20 {run['val_recall@20']} is not above "
+                             f"5 x random ({random_recall})")
+
+    fwd_rows, bwd_rows, kernel_rows = _trace_kernel_rows(os.path.join(base, "profile"))
+    result["trace"] = {"fwd_kernels": fwd_rows, "bwd_kernels": bwd_rows, "kernels": kernel_rows,
+                       "counted": epochs[TOOLS_PROFILE_EPOCH]["launches"]}
+    _check_tools_launches("profiled epoch's trace", (fwd_rows, bwd_rows),
+                          epochs[TOOLS_PROFILE_EPOCH]["launches"])
+    profiled = epochs[TOOLS_PROFILE_EPOCH]
+    result["profiler_overhead"] = {"plain_epoch_s": epochs[TOOLS_EPOCHS - 1]["train_s"],
+                                   "profiled_epoch_s": profiled["train_s"],
+                                   "with_trace_s": profiled["with_trace_s"]}
+
+    figure = os.path.join(run_dir, "figures", "epoch_0.png")
+    has_matplotlib = importlib.util.find_spec("matplotlib") is not None
+    result["figure"] = figure if os.path.exists(figure) else None
+    if (result["figure"] is not None) != has_matplotlib:
+        raise AssertionError(f"tools: figure {result['figure']} with matplotlib "
+                             f"{'present' if has_matplotlib else 'missing'}")
+    (checkpoint,) = glob.glob(os.path.join(run_dir, "*.ckpt"))
+    return checkpoint
+
+
+def tools_tune(base, data_root, steps, eval_batches, result, device):
+    """``quickstart.tune`` over two learning rates, one epoch each: both runs
+    through the kernels, the best by ``val_best``."""
+    layers = TRAIN_CONFIG["model"]["layer_num"]
+    runs = []
+    t0 = time.perf_counter()
+    with _counted_runs(runs, device):
+        best, results = quickstart.tune(_tools_cfg(base, "tune", epochs=1),
+                                        {"train.learning_rate": TOOLS_LRS}, root=data_root,
+                                        method="grid", device=device)
+    result["tune"] = {"runs": runs, "tune_s": time.perf_counter() - t0,
+                      "best": best["params"]}
+    for run in runs:
+        _check_tools_launches(f"tune lr {run['learning_rate']}", run["launches"],
+                              (layers * (steps + 2 * eval_batches), layers * steps))
+    if ([r["params"]["train.learning_rate"] for r in results] != TOOLS_LRS
+            or best["metrics"]["val_best"] != max(r["val_best"] for r in runs)):
+        raise AssertionError(f"tools tune: {result['tune']}")
+    return [sum(r["launches"][i] for r in runs) for i in (0, 1)]
+
+
+def tools_serve(base, data_root, checkpoint, result, device):
+    """The run's best checkpoint served, then the same with its table padded
+    by one row, as an EP run saves it: the same ids."""
+    from dr4sr_tpu_torch.train.checkpoint import load_checkpoint, save_checkpoint
+
+    rows = prepare_datasets(TRAIN_CONFIG, root=data_root)[2].rows()
+    hists = [list(h[:n]) for h, n in zip(rows.in_item_id[:TOOLS_SERVED], rows.seqlen)]
+    params, meta = load_checkpoint(checkpoint)
+    table = "item_embedding.weight"
+    params[table] = torch.cat([params[table], params[table][:1] * 0])
+    padded = os.path.join(base, "padded.ckpt")
+    save_checkpoint(padded, params, meta["config"], "SASRec", meta["epoch"], meta["metric"])
+    before = _counts()
+    served = [Recommender.from_checkpoint(path, root=data_root, batch_size=BATCH, device=device)
+              .recommend(hists, k=TOPK) for path in (checkpoint, padded)]
+    launches = _grown(before)
+    batches = 2 * -(-len(hists) // BATCH)
+    result["serve"] = {"histories": len(hists), "padded_rows": int(params[table].shape[0]),
+                       "ids_equal": bool(np.array_equal(served[0][0], served[1][0])),
+                       "scores_max_diff": float(np.abs(served[0][1] - served[1][1]).max()),
+                       "launches": list(launches)}
+    if not result["serve"]["ids_equal"]:
+        raise AssertionError(f"tools serve: {result['serve']}")
+    _check_tools_launches("serve", launches, (TRAIN_CONFIG["model"]["layer_num"] * batches, 0))
+    return launches
+
+
+def tools_fused(base, data_root, steps, result, device):
+    """``quickstart.run`` at ``train.steps_per_dispatch = 16`` for 2 epochs
+    with epoch 1 profiled: the trace sees the kernels the graphs replay."""
+    layers = TRAIN_CONFIG["model"]["layer_num"]
+    cfg = _tools_cfg(base, "fused", epochs=2, steps_per_dispatch=FUSED_N, profile_epoch=1,
+                     profile_dir=os.path.join(base, "profile_fused"))
+    epochs = {}
+    before = _counts()
+    with _watched_epochs(epochs, device):
+        quickstart.run(cfg, root=data_root, device=device)
+    launches = _grown(before)
+    fwd_rows, bwd_rows, kernel_rows = _trace_kernel_rows(os.path.join(base, "profile_fused"))
+    result["fused_profiled"] = {"fwd_kernels": fwd_rows, "bwd_kernels": bwd_rows,
+                                "kernels": kernel_rows, "epochs": epochs,
+                                "launches": list(launches)}
+    _check_tools_launches("fused profiled epoch", (fwd_rows, bwd_rows), epochs[1]["launches"])
+    _check_tools_launches("fused epoch 1", epochs[1]["launches"], (layers * steps,) * 2)
+    return launches
+
+
+def tools(card, workdir, device="cuda"):
+    """Phase 12 on phase 6's data, in a process of its own (:func:`_tools`
+    as the one rank of ``parallel.launch.run_ranks``), as a user's run
+    profiles its epoch: in this process, which profiled dozens of times in
+    phases 3–11, a session's trace lost the first kernels of the epoch
+    (12–36 of them in sessions 4–10 minutes after the first, on an H100;
+    a process's first minutes lost none). Returns the launches by path."""
+    from dr4sr_tpu_torch.parallel.launch import run_ranks
+
+    store = tempfile.mktemp(prefix="store_tools_", dir=workdir)
+    (launches,) = run_ranks(_tools_rank, 1, store, card, workdir, device, device_type=device,
+                            timeout_s=TOOLS_TIMEOUT_S)
+    return launches
+
+
+def _tools_rank(rank, card, workdir, device):
+    return _tools(card, workdir, device)
+
+
+def _tools(card, workdir, device="cuda"):
+    """Phase 12's body: the dataset rebuilt by the preprocessing CLI from
+    phase 6's ``seq2pat_data.npz``; ``quickstart.run`` with TensorBoard and
+    a profiled epoch; ``quickstart.tune``; the checkpoint served plain and
+    EP-padded; a profiled epoch of CUDA-graph replays. The ``tools`` line
+    holds what each part read, also when one of them fails."""
+    result = {"card": card}
+    fwd, bwd = {}, {}
+    base = tempfile.mkdtemp(prefix="chip_smoke_tools_")
+    cwd = os.getcwd()
+    os.chdir(base)  # the runs' log files go to log/ under the working directory
+    try:
+        data_root = os.path.join(base, "data")
+        t0 = time.perf_counter()
+        subprocess.run([sys.executable, "-m", "dr4sr_tpu_torch.scripts.preprocess",
+                        "--from-seq2pat",
+                        os.path.join(workdir, "amazon-toys", "toy", "seq2pat_data.npz"),
+                        "--out", os.path.join(data_root, "amazon-toys", "toy")],
+                       cwd=REPO_DIR, check=True, capture_output=True, text=True, timeout=600)
+        datasets = prepare_datasets(TRAIN_CONFIG, root=data_root)
+        steps = len(datasets[0].get_loader())
+        eval_batches = len(datasets[1].get_loader())
+        result["rebuilt"] = {"rows": [len(d) for d in datasets], "steps_per_epoch": steps,
+                             "eval_batches": eval_batches, "num_items": datasets[0].num_items,
+                             "s": time.perf_counter() - t0}
+        checkpoint = tools_run(base, data_root, steps, eval_batches, result, device)
+        fwd["tools_run"], bwd["tools_run"] = result["run"]["launches"]
+        fwd["tools_tune"], bwd["tools_tune"] = tools_tune(base, data_root, steps, eval_batches,
+                                                          result, device)
+        fwd["tools_serve"], bwd["tools_serve"] = tools_serve(base, data_root, checkpoint, result,
+                                                             device)
+        fwd["tools_fused"], bwd["tools_fused"] = tools_fused(base, data_root, steps, result,
+                                                             device)
+    finally:
+        os.chdir(cwd)
+        shutil.rmtree(base, ignore_errors=True)
+        log(f"tools {json.dumps(result, default=str)}")
+    return fwd, bwd
+
+
 class _SummingAllReduce(torch.autograd.Function):
     """An all-reduce whose backward sums the cotangent over the axis too, as
     ``torch.distributed.nn.all_reduce``'s does."""
@@ -2878,6 +3261,8 @@ def main() -> int:
         log(f"elapsed after phase 10: {time.perf_counter() - start:.1f}s")
         dist_fwd_launches, dist_bwd_launches = dist(card, workdir)
         log(f"elapsed after phase 11: {time.perf_counter() - start:.1f}s")
+        tools_fwd_launches, tools_bwd_launches = tools(card, workdir)
+        log(f"elapsed after phase 12: {time.perf_counter() - start:.1f}s")
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = [{
@@ -2889,7 +3274,8 @@ def main() -> int:
         "launches_by_path": {"serve": serve_launches, "train": train_fwd_launches,
                              **regen_fwd_launches, **zoo_fwd_launches,
                              **graph_fwd_launches, **meta_fwd_launches,
-                             **fused_fwd_launches, **dist_fwd_launches},
+                             **fused_fwd_launches, **dist_fwd_launches,
+                             **tools_fwd_launches},
         **{key: fwd_cases[0][key] for key in keys},
         "sass_hmma": hmma["flash_attention_fwd"],
         "cases": fwd_cases,
@@ -2902,7 +3288,8 @@ def main() -> int:
         "launches_by_path": {"serve": serve_bwd_launches, "train": train_bwd_launches,
                              **regen_bwd_launches, **zoo_bwd_launches,
                              **graph_bwd_launches, **meta_bwd_launches,
-                             **fused_bwd_launches, **dist_bwd_launches},
+                             **fused_bwd_launches, **dist_bwd_launches,
+                             **tools_bwd_launches},
         **{key: bwd_cases[0][key] for key in keys},
         "sass_hmma": hmma["flash_attention_bwd"],
         "cases": bwd_cases,

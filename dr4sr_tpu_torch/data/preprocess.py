@@ -1,14 +1,21 @@
-"""The leave-last-out split and the on-disk layout of one domain.
+"""Dataset preprocessing (port of ``dr4sr_tpu/data/preprocess.py``, the
+script equivalent of the reference notebooks).
 
-Port of ``dr4sr_tpu/data/preprocess.py:57-161``, the part the synthetic
-writer needs (the 5-core filter and id factorisation of the raw-data
-notebooks wait for the preprocessing scripts):
+The split protocol of ``dataset/preprocess_amazon.ipynb`` (cells 9-24) /
+``preprocess_yelp.ipynb``:
 
+* iterative 5-core filtering on users and items (:func:`core_filter`);
+* factorize ids with PAD=0, ids starting at 1 (:func:`factorize_ids`);
 * per user sequence (last ``max_seq_len`` kept): test = predict the last
   item from ``seq[:-1]``; val = the second-last from ``seq[:-2]``; train =
   history ``seq[:-3]`` with per-position next-item targets
-  ``seq[-len-2:-2]`` and label ``[1]*len``, post-padded to ``max_seq_len``;
+  ``seq[-len-2:-2]`` and label ``[1]*len``, post-padded to ``max_seq_len``
+  (:func:`build_splits`);
 * ``seq2pat`` input = each user's items minus the val/test items.
+
+:func:`resplit_sequences` applies the same leave-last-out protocol to raw
+per-user sequences (a ``seq2pat_data`` file). pandas is imported only by
+:func:`factorize_ids` (and by the preprocessing CLI's CSV and JSON modes).
 """
 
 from __future__ import annotations
@@ -21,6 +28,29 @@ import numpy as np
 from dr4sr_tpu_torch.data.dataset import RowData
 
 PAD = 0
+
+
+def core_filter(df, user_threshold: int = 5, item_threshold: int = 5):
+    """Iterative k-core filtering (notebook cell 9)."""
+    while True:
+        n = len(df)
+        df = df[df["user_id"].map(df["user_id"].value_counts()) >= user_threshold]
+        df = df[df["item_id"].map(df["item_id"].value_counts()) >= item_threshold]
+        if len(df) == n:
+            break
+    return df
+
+
+def factorize_ids(df):
+    """Dense ids with PAD=0 (notebook cell 12). Returns df, num_users, num_items."""
+    import pandas as pd
+
+    user_codes, user_tokens = pd.factorize(df["user_id"])
+    item_codes, item_tokens = pd.factorize(df["item_id"])
+    df = df.copy()
+    df["user_id"] = user_codes + 1
+    df["item_id"] = item_codes + 1
+    return df, len(user_tokens) + 1, len(item_tokens) + 1
 
 
 def _truncate_or_pad(seq: Sequence[int], max_seq_len: int) -> Tuple[List[int], int]:
@@ -106,3 +136,17 @@ def save_domain(
         domain_items=domain_items[domain_items != PAD],
         domain_users=domain_users[domain_users != PAD],
     )
+
+
+def resplit_sequences(
+    sequences: List[List[int]], max_seq_len: int = 50, domain_idx: int = 0
+) -> Tuple[RowData, RowData, RowData, int, int]:
+    """Apply the leave-last-out protocol to raw sequences (1-indexed users).
+
+    Returns (train, val, test, num_users, num_items).
+    """
+    user_seqs = {i + 1: s for i, s in enumerate(sequences) if len(s) >= 3}
+    num_users = len(sequences) + 1
+    num_items = int(max(max(s) for s in sequences if s)) + 1
+    tr, va, te = build_splits(user_seqs, max_seq_len, domain_idx)
+    return tr, va, te, num_users, num_items

@@ -1,17 +1,18 @@
-"""Ranking metrics on torch tensors.
+"""Ranking and prediction metrics on torch tensors.
 
-Port of the rank metrics of ``dr4sr_tpu/evaluation/__init__.py``, with the
+Port of ``dr4sr_tpu/evaluation/__init__.py``, with the
 reference's contract (``evaluation/__init__.py``): each metric consumes
 ``pred`` — a boolean [B, topk] hit matrix where column j says "the j-th
 ranked item is a true target" — plus ``target`` ([B] or [B, T] positive
 ratings) and a cutoff, and returns the **per-sample** [B] vector. The
 trainer aggregates with the batch ``valid`` mask, which reproduces the
-reference's ``Σ metric·bs / Σ bs``.
+reference's ``Σ metric·bs / Σ bs``. The prediction metrics take scores
+and targets and take no cutoff; ``auc`` returns one global value.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Sequence
+from typing import Callable, Dict, List, Sequence, Union
 
 import torch
 
@@ -69,9 +70,45 @@ def map_(pred: torch.Tensor, target: torch.Tensor, k: int) -> torch.Tensor:
     return (cum * p).sum(dim=-1) / count.clamp_max(k)
 
 
+# ---------------------------------------------------------------------------
+# prediction metrics (reference ``evaluation/__init__.py:174-232``)
+# ---------------------------------------------------------------------------
+
+
+def logloss(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    """Per-sample binary cross-entropy with logits."""
+    t = target.float()
+    return pred.clamp_min(0) - pred * t + torch.log1p(torch.exp(-pred.abs()))
+
+
+def accuracy(pred: torch.Tensor, target: torch.Tensor, thres: float = 0.5) -> torch.Tensor:
+    return ((pred >= thres) == (target > 0.5)).float()
+
+
+def mse(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    return (pred - target) ** 2
+
+
+def mae(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    return (pred - target).abs()
+
+
+def auc(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    """Global AUC via rank statistic (Mann-Whitney U); returns a scalar.
+    Tied scores keep their order (a stable sort, as ``jnp.argsort``), so a
+    tie is not averaged."""
+    order = torch.argsort(pred, stable=True)
+    ranks = torch.argsort(order, stable=True).float() + 1.0
+    pos = target > 0.5
+    n_pos = pos.sum()
+    n_neg = pred.shape[0] - n_pos
+    u = torch.where(pos, ranks, 0.0).sum() - n_pos * (n_pos + 1) / 2.0
+    return u / (n_pos * n_neg).float().clamp_min(1.0)
+
+
 MetricFn = Callable[[torch.Tensor, torch.Tensor, int], torch.Tensor]
 
-metric_dict: Dict[str, MetricFn] = {
+metric_dict: Dict[str, Callable] = {
     "ndcg": ndcg,
     "recall": recall,
     "precision": precision,
@@ -79,7 +116,43 @@ metric_dict: Dict[str, MetricFn] = {
     "mrr": mrr,
     "hit": hit,
     "map": map_,
+    "logloss": logloss,
+    "accuracy": accuracy,
+    "mse": mse,
+    "mae": mae,
+    "auc": auc,
 }
+
+_TOPK_METRICS = {"ndcg", "recall", "precision", "f1", "mrr", "hit", "map"}
+_PRED_METRICS = {"logloss", "accuracy", "mse", "mae", "auc"}
+
+
+def get_pred_metrics(metrics: Union[str, Sequence[str]]) -> List[str]:
+    if isinstance(metrics, str):
+        metrics = [metrics]
+    return [m for m in metrics if m in _PRED_METRICS]
+
+
+def get_rank_metrics(metrics: Union[str, Sequence[str]]) -> List[str]:
+    if isinstance(metrics, str):
+        metrics = [metrics]
+    return [m for m in metrics if m in _TOPK_METRICS]
+
+
+def get_eval_metrics(
+    metric_names: Union[str, Sequence[str]],
+    cutoffs: Union[int, Sequence[int]],
+    validation: bool = False,
+) -> List[str]:
+    """Expand names × cutoffs into 'name@cutoff' keys
+    (reference ``get_eval_metrics``; validation keeps only the first cutoff)."""
+    if isinstance(metric_names, str):
+        metric_names = [metric_names]
+    if not isinstance(cutoffs, (list, tuple)):
+        cutoffs = [cutoffs]
+    if validation:
+        cutoffs = list(cutoffs)[:1]
+    return [f"{m}@{c}" for c in cutoffs for m in metric_names if m in _TOPK_METRICS]
 
 
 def compute_rank_metrics(
@@ -93,6 +166,6 @@ def compute_rank_metrics(
     out = {}
     for c in cutoffs:
         for m in metric_names:
-            if m in metric_dict:
+            if m in _TOPK_METRICS:  # pred metrics don't take a cutoff
                 out[f"{m}@{c}"] = metric_dict[m](pred, target, int(c))
     return out

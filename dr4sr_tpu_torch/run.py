@@ -1,4 +1,5 @@
-"""CLI: train and evaluate one model on one dataset, with the port.
+"""CLI: train and evaluate one model on one dataset, with the port, through
+``quickstart.run`` (the log goes to ``log/<Model>/<dataset>/<stamp>.log``).
 
 Usage (the root ``run.py``'s surface):
 
@@ -60,9 +61,8 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, float]:
 
     import yaml
 
+    from dr4sr_tpu_torch import quickstart
     from dr4sr_tpu_torch.config import load_config
-    from dr4sr_tpu_torch.data.dataset import prepare_datasets
-    from dr4sr_tpu_torch.quickstart import make_trainer
 
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(message)s")
     config = load_config(args.model, args.dataset)
@@ -95,14 +95,9 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, float]:
                                               device_type="cpu" if args.cpu else "cuda"),
                              shard_embedding=args.shard_embedding)
 
-    datasets = prepare_datasets(config, root=args.root)
-    trainer = make_trainer(config, datasets, device=device, mesh_plan=mesh_plan)
-    trainer.fit()
-    out = trainer.evaluate()
+    out = quickstart.run(config, root=args.root, mesh_plan=mesh_plan, device=device)
     if mesh_plan is not None:
         torch.distributed.destroy_process_group()
-    # the validation selection score, so sweeps never select on test
-    out["val_best"] = float(trainer.callback.best_value)
     print(out)
     return out
 

@@ -9,4 +9,6 @@ where a stage uses the card):
 
 They chain by files in the domain directory ``D``: ``patterns.npz`` and
 ``seq-pat-pair.pkl``, the regenerator checkpoint, ``train_regen.npz``.
+Before them, ``python -m dr4sr_tpu_torch.scripts.preprocess`` builds ``D``
+(train/val/test, ``meta.npz``, ``seq2pat_data.npz``) from raw files.
 """

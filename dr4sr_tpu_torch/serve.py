@@ -17,7 +17,10 @@ serves FMLP from a padding position for any history shorter than
 ``params`` is a state_dict for ``rec.module`` (``convert.py`` makes one from
 a JAX param tree). ``Recommender.from_checkpoint(path)`` rebuilds the model
 from a checkpoint of this package or of the JAX package (flax msgpack, read
-without the msgpack package) and its ``.json`` sidecar's config.
+without the msgpack package) and its ``.json`` sidecar's config. An item
+table with more rows than the module's (saved padded to a multiple of the
+``model`` axis by an EP run) keeps its first rows, as ``convert.py`` keeps
+a JAX one's; a table with fewer rows is refused by ``load_state_dict``.
 """
 
 from __future__ import annotations
@@ -33,6 +36,16 @@ from dr4sr_tpu_torch.models import get_model_class
 from dr4sr_tpu_torch.models.base import RecModel
 from dr4sr_tpu_torch.models.fmlp import pre_pad_batch
 from dr4sr_tpu_torch.train import checkpoint
+
+
+def _unpadded(params: Mapping[str, torch.Tensor],
+              module: torch.nn.Module) -> Mapping[str, torch.Tensor]:
+    """``params`` with an item table padded by EP cut to the module's rows:
+    no id reaches the padding."""
+    rows = {k: v.shape[0] for k, v in module.state_dict().items()
+            if k.endswith("item_embedding.weight")}
+    return {k: v[: rows[k]] if k in rows and v.shape[0] > rows[k] else v
+            for k, v in params.items()}
 
 
 class Recommender:
@@ -53,7 +66,7 @@ class Recommender:
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("device='cuda' asked for, but CUDA is not available")
         module = copy.deepcopy(rec.module)  # the caller's module stays where it is
-        module.load_state_dict(params)
+        module.load_state_dict(_unpadded(params, module))
         module.to(self.device).eval()
         self.rec = dataclasses.replace(rec, module=module)
         self.pre_padding = bool(getattr(get_model_class(rec.config["model"]["model"]),

@@ -4,8 +4,8 @@ Port of ``dr4sr_tpu/train/callbacks.py`` (reference ``utils/callbacks.py``,
 ``EarlyStopping:12``, ``Analyzer:141``). :class:`EarlyStopping` keeps the
 best params as a CPU state_dict and writes the best checkpoint (process 0
 alone, under a mesh);
-:class:`Analyzer` buckets per-user metrics by history length and returns the
-summary (the reference's matplotlib figure waits for a later slice).
+:class:`Analyzer` buckets per-user metrics by history length, returns the
+summary and renders it as a figure (matplotlib, Agg backend).
 """
 
 from __future__ import annotations
@@ -104,6 +104,33 @@ class Analyzer:
         self._lens.append(np.asarray(hist_len)[valid])
         for k, v in metrics.items():
             self._metrics.setdefault(k, []).append(np.asarray(v)[valid])
+
+    def plot(self, path: str) -> Optional[str]:
+        """Bar charts of each metric by history-length bucket, written to
+        ``path`` (the reference pushes these to wandb as matplotlib figures
+        every 10 epochs); None when there is nothing to plot or matplotlib is
+        not installed."""
+        summary = self.summary()
+        if not summary:
+            return None
+        try:
+            import matplotlib
+        except ImportError:
+            return None
+        matplotlib.use("Agg")
+        import matplotlib.pyplot as plt
+
+        fig, axes = plt.subplots(1, len(summary), figsize=(4 * len(summary), 3), squeeze=False)
+        for ax, (metric, buckets) in zip(axes[0], summary.items()):
+            ax.bar(range(len(buckets)), list(buckets.values()))
+            ax.set_xticks(range(len(buckets)))
+            ax.set_xticklabels(list(buckets.keys()), rotation=45, fontsize=7)
+            ax.set_title(metric, fontsize=9)
+        fig.tight_layout()
+        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+        fig.savefig(path, dpi=100)
+        plt.close(fig)
+        return path
 
     def summary(self) -> Dict[str, Dict[str, float]]:
         if not self._lens:

@@ -39,8 +39,19 @@ is refused up front (``fused.capture_refusal``).
 
 DR4SR+ (``MetaModel``, ``is_meta``) trains under the subclass
 ``train.meta_trainer.MetaTrainer``, which ``quickstart.make_trainer`` picks;
-a plain ``Trainer`` refuses it. Not ported yet, and refused with a clear
-error: ``train.tensorboard_dir`` and ``train.profile_epoch``.
+a plain ``Trainer`` refuses it. ``train.disable_jit`` runs the groups
+eagerly (the same steps, no graph); ``train.rng_impl`` (JAX's PRNG choice)
+is refused.
+
+Observability, as the JAX trainer's: every epoch's metrics go to
+``<save base>/<model>/<dataset>/metrics.jsonl`` and, with
+``train.tensorboard_dir``, each float of them to a TensorBoard event file
+there (``utils/tbwriter.py``; step = epoch); ``train.profile_epoch = n``
+wraps epoch n's training (not its eval) in ``torch.profiler`` (CPU, and
+CUDA on the card) and writes one trace a rank into ``train.profile_dir``;
+every 10 epochs the analyzer's figure goes to ``figures/epoch_<n>.png``
+beside ``metrics.jsonl``. Process 0 alone writes the metrics, events and
+figures.
 
 Several devices (``mesh_plan``, a ``parallel.mesh.MeshPlan``; one process a
 rank), as the JAX trainer places them (its ``:67-72``, ``:118-144``,
@@ -81,6 +92,7 @@ import itertools
 import json
 import logging
 import os
+import tempfile
 import time
 from collections import defaultdict
 from typing import Any, Dict, Optional, Tuple
@@ -111,6 +123,8 @@ from dr4sr_tpu_torch.parallel.mesh import (
 from dr4sr_tpu_torch.train.callbacks import Analyzer, EarlyStopping
 from dr4sr_tpu_torch.train.checkpoint import load_checkpoint
 from dr4sr_tpu_torch.train.fused import StepGraphs, capture_refusal, stack_batches, step_batches
+from dr4sr_tpu_torch.utils.env import refuse_rng_impl
+from dr4sr_tpu_torch.utils.tbwriter import SummaryWriter
 
 logger = logging.getLogger("dr4sr_tpu_torch")
 
@@ -119,7 +133,6 @@ _ORIGINAL_LOADER_SEED = 7919
 # the dropout stream of data rank d is seeded seed + 1 + d * this
 _DROPOUT_RANK_STRIDE = 7919
 _TABLE = "item_embedding.weight"
-_UNPORTED_TRAIN_KEYS = ("tensorboard_dir", "profile_epoch")
 
 
 class _OptaxRMS(torch.optim.Optimizer):
@@ -229,9 +242,7 @@ class Trainer:
                 f"model.context_parallel={cp} needs a mesh with a model axis of that size "
                 f"(got {self.plan.data_size} x {self.plan.model_size})")
         cfg_t = config["train"]
-        for key in _UNPORTED_TRAIN_KEYS:
-            if cfg_t.get(key) is not None:
-                raise NotImplementedError(f"train.{key} is not ported to dr4sr_tpu_torch yet")
+        refuse_rng_impl(cfg_t)
         self.steps_per_dispatch = int(cfg_t.get("steps_per_dispatch", 1))
         if self.steps_per_dispatch < 1:
             raise ValueError(f"train.steps_per_dispatch must be at least 1, got "
@@ -284,6 +295,8 @@ class Trainer:
         # the epoch's loss sum, on the device; captured steps add to it by address
         self._loss_sum = torch.zeros((), device=self.device)
         self._graphs: Optional[StepGraphs] = None  # the fused groups' CUDA graphs
+        self._eager_groups = bool(cfg_t.get("disable_jit"))
+        self._tb_writer: Optional[SummaryWriter] = None
 
     @property
     def world_size(self) -> int:
@@ -436,7 +449,8 @@ class Trainer:
     @property
     def _captures(self) -> bool:
         """Whether groups of steps are captured into CUDA graphs."""
-        return self.device.type == "cuda" and self.steps_per_dispatch > 1
+        return (self.device.type == "cuda" and self.steps_per_dispatch > 1
+                and not self._eager_groups)
 
     def _autocast(self):
         if self.compute_dtype is None:
@@ -715,6 +729,32 @@ class Trainer:
                  for k, v in record.items()}
         with open(path, "a") as f:
             f.write(json.dumps(clean) + "\n")
+        tb_dir = self.config["train"].get("tensorboard_dir")
+        if tb_dir:
+            if self._tb_writer is None:
+                self._tb_writer = SummaryWriter(tb_dir)
+            step = int(record.get("epoch", 0))
+            for k, v in clean.items():
+                if isinstance(v, float):
+                    self._tb_writer.add_scalar(k, v, step)
+
+    def _maybe_profile(self, nepoch: int):
+        """A ``torch.profiler`` session over epoch ``nepoch``'s training when
+        it is ``train.profile_epoch``: CPU ops, and on the card its kernels
+        (graph replays included); on exit one trace a rank goes to
+        ``train.profile_dir`` (default ``<temp dir>/dr4sr_profile``)."""
+        cfg_t = self.config["train"]
+        if nepoch != cfg_t.get("profile_epoch"):
+            return contextlib.nullcontext()
+        out = cfg_t.get("profile_dir") or os.path.join(tempfile.gettempdir(), "dr4sr_profile")
+        logger.info(f"profiling epoch {nepoch} -> {out}")
+        activities = [torch.profiler.ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(torch.profiler.ProfilerActivity.CUDA)
+        return torch.profiler.profile(
+            activities=activities,
+            on_trace_ready=torch.profiler.tensorboard_trace_handler(
+                out, worker_name=f"rank{process_index()}"))
 
     # --------------------------------------------------------- fault tolerance
     def _state_path(self) -> str:
@@ -812,7 +852,8 @@ class Trainer:
         for nepoch in range(start_epoch, int(cfg_t["epochs"])):
             self.logged_metrics = {"epoch": nepoch}
             tik = time.perf_counter()
-            train_loss = self.training_epoch(nepoch)
+            with self._maybe_profile(nepoch):
+                train_loss = self.training_epoch(nepoch)
             self.training_time += time.perf_counter() - tik
             self.logged_metrics["train_loss"] = train_loss
             if ckpt_every and (nepoch + 1) % ckpt_every == 0:
@@ -829,8 +870,15 @@ class Trainer:
                 self._log_metrics_jsonl(self.logged_metrics)
             if analyze:
                 logger.info(f"analyzer (by history length): {self._last_analyzer.summary()}")
+                # the reference's wandb figure (utils/callbacks.py:161-198)
+                if process_index() == 0:
+                    self._last_analyzer.plot(
+                        os.path.join(self.run_dir(), "figures", f"epoch_{nepoch}.png"))
             if callback(self.full_state_dict(), self.config, nepoch, self.logged_metrics):
                 break
+        if self._tb_writer is not None:
+            self._tb_writer.close()
+            self._tb_writer = None
         self.callback = callback
         self.best_params = callback.best_params or {
             k: v.detach().to("cpu", copy=True) for k, v in self.full_state_dict().items()}

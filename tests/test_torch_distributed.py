@@ -228,6 +228,15 @@ def test_process_zero_writes_a_padded_checkpoint_that_loads_back(tmp_path, setup
         np.testing.assert_allclose(metrics[k], v, atol=1e-6)
 
 
+class _FakeRows:
+    """What ``quickstart.run`` logs of a dataset; no rows behind it."""
+
+    num_users = num_items = 0
+
+    def __len__(self):
+        return 0
+
+
 class _FakeMesh:
     """The two sizes a refusal reads; no process group behind it."""
 
@@ -303,7 +312,7 @@ def test_the_mesh_flags_reach_the_trainer(monkeypatch):
     monkeypatch.setattr(mesh_mod, "create_mesh", fake_mesh)
     monkeypatch.setattr(qs, "make_trainer", fake_make_trainer)
     monkeypatch.setattr("dr4sr_tpu_torch.data.dataset.prepare_datasets",
-                        lambda config, root: None)
+                        lambda config, root: (_FakeRows(),) * 3)
     monkeypatch.delenv("LOCAL_RANK", raising=False)
     with pytest.raises(Stop):
         run.main(["--cpu", "-m", "SASRec", "-d", "amazon-toys", "--data-parallel", "2",

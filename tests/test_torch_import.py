@@ -38,10 +38,15 @@ def _sources():
     yield os.path.join(REPO, "chip_smoke.py")
 
 
-# modules that must be among those imported (the multi-device layer's too)
+# modules that must be among those imported (the multi-device layer's and
+# the tooling's too)
 REQUIRED = ("dr4sr_tpu_torch.parallel.mesh", "dr4sr_tpu_torch.parallel.ep",
             "dr4sr_tpu_torch.parallel.collectives", "dr4sr_tpu_torch.parallel.launch",
-            "dr4sr_tpu_torch.ops.ring_attention", "dr4sr_tpu_torch.ops.topk")
+            "dr4sr_tpu_torch.ops.ring_attention", "dr4sr_tpu_torch.ops.topk",
+            "dr4sr_tpu_torch.utils.env", "dr4sr_tpu_torch.utils.logger",
+            "dr4sr_tpu_torch.utils.parsing", "dr4sr_tpu_torch.utils.tbwriter",
+            "dr4sr_tpu_torch.quickstart", "dr4sr_tpu_torch.tune",
+            "dr4sr_tpu_torch.scripts.preprocess")
 
 
 def test_importing_the_port_loads_no_jax():

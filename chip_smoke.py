@@ -75,7 +75,9 @@ Phases, in order; any failure raises and the script exits nonzero:
    time); around FMLP, the shipped sub-model, the same card-vs-CPU checks
    and a few warm, weighted and outer steps (no attention); around GRU4Rec
    one outer step card against CPU (cuDNN off: its RNN has no double
-   backward);
+   backward); around SGL 3 warm steps (with SGL's aux term and its edge
+   masks), an outer step and 3 weighted steps (without the term) card
+   against CPU, with launch counts;
 10. fused: on the same data, ``train.steps_per_dispatch = 16``, each group
    of 16 steps one replay of a CUDA graph that holds both attention
    kernels: a group through the graph against the same steps eagerly
@@ -109,7 +111,16 @@ Phases, in order; any failure raises and the script exits nonzero:
    with a fully padded row; the artifact's decode of 4,096 sequences under
    K = 5 on 2 ranks, token for token as one rank's; step times of each run
    beside one rank's (host-staged gloo on one card: not a multi-GPU
-   speed).
+   speed). Then the zoo and DR4SR+ on a mesh (``dist_more``): CL4SRec,
+   ICLRec and SGL over DP 2 × 1, NCL and CL4SRec over 2 × 2 (DP × EP), GNN
+   and SimGCL over EP 1 × 2, CL4SRec over CP 1 × 2 (2 steps each), and
+   DR4SR+ around SASRec over DP 2 × 1 and EP 1 × 2 (a weighted, an outer
+   and a weighted step), each at its config's widths from one rank's
+   weights, batches, negatives, views, aux draws and per-epoch state
+   against one rank on the card: losses, first-step gradients, replicas,
+   NCL's and ICLRec's own refreshed state and DR4SR+'s meta parameters
+   bitwise across ranks, the hypergradient, launches and each step's
+   collectives as predicted.
 12. tools: on the same data, the trainer's tooling: the dataset rebuilt
    from its ``seq2pat_data.npz`` by ``python -m
    dr4sr_tpu_torch.scripts.preprocess --from-seq2pat`` (a subprocess);
@@ -142,8 +153,11 @@ phase 10's graph-against-eager check of SASRec with the trainer's
 generator left unregistered and with a group's batches not copied into the
 graph's inputs, and phase 11's checks against one rank with the EP
 gather's backward summing over ``model``, the ring's backward without its
-last send, and the loss's denominator left per rank; it prints whether the
-check caught each (a ``control {...}`` line per path and fault).
+last send, the loss's denominator left per rank, CL4SRec's views gathered
+with ``gather_seq``'s backward (each rank's own chunk of the cotangent),
+and DR4SR+'s Hessian-vector products left out of the all-reduce over
+``data``; it prints whether the check caught each (a ``control {...}``
+line per path and fault).
 """
 
 from __future__ import annotations
@@ -1394,6 +1408,16 @@ def graph_ms(trainer):
     return device_ms(lambda: torch.autograd.grad(fn(table), table, grads), calls=20)
 
 
+def propagation_repeats(trainer):
+    """Whether two propagations of one table give the same bits. EP's
+    ``model`` ranks each propagate the whole table and must stay replicas,
+    so the forward must repeat; its backward's atomic adds land in the
+    table's gradient, of which each rank keeps only its own rows."""
+    fn = _propagation(trainer, torch.Generator(device="cuda").manual_seed(0))
+    table = trainer.rec.module.item_embedding.weight.detach()[:NUM_ITEMS]
+    return all(torch.equal(a, b) for a, b in zip(fn(table), fn(table)))
+
+
 def graph_model(model, workdir, card, result):
     """One graph or intent model on the card, into ``result``: card vs CPU;
     GRAPH_STEPS steps through the epoch hook and one validation pass,
@@ -1468,6 +1492,9 @@ def graph_model(model, workdir, card, result):
                   profile_busy_share=device_us / wall_us)
     if getattr(trainer.model_class, "needs_graph", False):
         result["graph_ms"] = graph_ms(trainer)
+        result["propagation_bitwise"] = propagation_repeats(trainer)
+        if not result["propagation_bitwise"]:
+            raise AssertionError(f"{model}: two propagations of one table differ")
 
     bf16 = Trainer(_graph_cfg(workdir, model, precision="bf16"),
                    prepare_datasets(cfg, root=workdir), workdir=workdir, device="cuda")
@@ -1506,6 +1533,8 @@ def _meta_cfgs(workdir, sub_model, **sub_train):
     META_MODEL and META_TRAIN over it."""
     if sub_model == "SASRec":
         sub = _train_cfg(workdir, epochs=META_EPOCHS, **sub_train)
+    elif sub_model in GRAPH_MODELS:
+        sub = _graph_cfg(workdir, sub_model, epochs=META_EPOCHS, **sub_train)
     else:
         sub = _zoo_cfg(workdir, sub_model, epochs=META_EPOCHS, **sub_train)
     meta = copy.deepcopy(sub)
@@ -1530,12 +1559,15 @@ def _rel_errs(got, want):
             / max(w.abs().max().item(), 1e-30) for k, w in want.items()}
 
 
-def meta_card_vs_cpu(sub_model, workdir, outer=True, weighted=True):
+def meta_card_vs_cpu(sub_model, workdir, outer=True, weighted=True, warm=False):
     """The bilevel trainer around ``sub_model`` from the same initial weights,
     dropout 0, with the same batches, negatives and Gumbel noise, card
-    against CPU: one outer step's hypergradient and the meta update after
-    it (``outer``), then the first weighted step's gradients and 3 weighted
-    Adam steps' losses (``weighted``; the keys of :func:`_parity`)."""
+    against CPU: 3 warm steps, the plain step with the sub-model's aux term
+    and its draws (``warm``; under ``warm``, the keys of :func:`_parity`),
+    then one outer step's hypergradient and the meta update after it
+    (``outer``), then the first weighted step's gradients and 3 weighted
+    Adam steps' losses (``weighted``; under ``weighted``, the keys of
+    :func:`_parity`). The weighted loss leaves an aux term out."""
     trainers = {d: _meta_trainer(workdir, sub_model, d, dropout=0.0) for d in ("cuda", "cpu")}
     host = trainers["cpu"]
     rng = np.random.default_rng(0)
@@ -1546,6 +1578,25 @@ def meta_card_vs_cpu(sub_model, workdir, outer=True, weighted=True):
                 torch.from_numpy(rng.gumbel(size=item.shape + (2,)).astype(np.float32)))
 
     result = {}
+    if warm:  # on trainers of their own: the outer and weighted checks start fresh
+        gen = torch.Generator().manual_seed(0)
+        steps = []
+        for b, _ in zip(host.train_data.get_loader(seed=0), range(3)):
+            aux = host.model_class.aux_draws(gen, host.device_batch(b, is_train=True),
+                                             host.config["model"], NUM_ITEMS)
+            steps.append((b, draws(b)[0], aux))
+        runs = {}
+        for device in ("cuda", "cpu"):
+            tr = _meta_trainer(workdir, sub_model, device, dropout=0.0)
+            losses, grads = [], None
+            for batch, neg, aux in steps:
+                losses.append(tr.train_step(tr.device_batch(batch, is_train=True),
+                                            neg.to(tr.device),
+                                            aux_draws=_moved(aux, tr.device)).item())
+                grads = grads or {k: p.grad.detach().cpu()
+                                  for k, p in tr.rec.module.named_parameters()}
+            runs[device] = (losses, grads)
+        result["warm"] = _parity(runs)
     if outer:
         loader = host.train_data.get_loader(seed=4099)
         vb, tb = loader.sample_batch(), loader.sample_batch()
@@ -1776,12 +1827,33 @@ def meta(card, workdir):
             check_meta_card_vs_cpu(sub_model, result[sub_model]["card_vs_cpu"])
         if not torch.backends.cudnn.enabled:
             raise AssertionError("cuDNN was left off after an outer step")
+        sgl = meta_sgl(workdir, result)
         sasrec = meta_sasrec(workdir, card, result["SASRec"])
         fmlp = meta_fmlp(workdir, card, result["FMLP"])
     finally:
         log(f"meta {json.dumps(result)}")
-    return ({"meta_sasrec": sasrec[0], "meta_fmlp": fmlp[0]},
-            {"meta_sasrec": sasrec[1], "meta_fmlp": fmlp[1]})
+    return ({"meta_sasrec": sasrec[0], "meta_fmlp": fmlp[0], "meta_sgl": sgl[0]},
+            {"meta_sasrec": sasrec[1], "meta_fmlp": fmlp[1], "meta_sgl": sgl[1]})
+
+
+def meta_sgl(workdir, result):
+    """DR4SR+ around SGL, card vs CPU: 3 warm steps with SGL's aux
+    term (its edge masks fed), an outer step, 3 weighted steps without the
+    term; the card's attention launches over them (per step 2 forward and
+    2 backward, one a layer; none in the outer step, which attends plainly)."""
+    flash_attention_fwd.launches = flash_attention_bwd.launches = 0
+    parity = meta_card_vs_cpu("SGL", workdir, warm=True)
+    torch.cuda.synchronize()
+    launches = (flash_attention_fwd.launches, flash_attention_bwd.launches)
+    layers = GRAPH_MODELS["SGL"]["layer_num"]
+    want = (6 * layers, 6 * layers)
+    result["SGL"] = {"card_vs_cpu": parity, "attention_launches": list(launches),
+                     "want": list(want)}
+    check_card_vs_cpu(parity["warm"])
+    check_meta_card_vs_cpu("SGL", parity)
+    if launches != want:
+        raise AssertionError(f"MetaModel(SGL): launches {launches}, want {want}")
+    return launches
 
 
 # phase 10, fused dispatch (train.steps_per_dispatch): phase 5's SASRec at
@@ -2227,16 +2299,17 @@ def _dist_inputs(datasets):
     return batches, negs
 
 
-def _full_grads(trainer):
+def _full_grads(trainer, rows=None):
     """The gradients after a step; a row-sharded table's gathered over
-    ``model``, without its padding row."""
+    ``model`` and cut to its first ``rows`` (default ``num_items``: without
+    its padding row)."""
     from dr4sr_tpu_torch.parallel.collectives import all_gather
 
     grads = {k: p.grad.detach().clone() for k, p in trainer.rec.module.named_parameters()}
     if trainer.plan.ep_sharded():
         grads["item_embedding.weight"] = all_gather(grads["item_embedding.weight"],
                                                     trainer.plan.axis("model"),
-                                                    dim=0)[: trainer.num_items]
+                                                    dim=0)[: rows or trainer.num_items]
     return {k: g.cpu() for k, g in grads.items()}
 
 
@@ -2579,10 +2652,416 @@ def _spawn(fn, world, workdir, device, *args):
                      device_type=device, timeout_s=DIST_TIMEOUT_S)
 
 
+# phase 11's runs of the contrastive, intent and graph models and of DR4SR+
+# on a mesh, each at its configs/<model>.yaml widths (phases 7-9's configs,
+# dropout 0), held against one rank on the card from its weights, batches,
+# negatives, views and aux draws (and, for NCL and ICLRec, its per-epoch
+# state; each rank also fits its own, which must be bitwise one value on
+# every rank). name: (model, data, model axis, shard_embedding, context_parallel)
+DIST_ZOO_RUNS = {
+    "dp_cl4srec": ("CL4SRec", 2, 1, False, 1),
+    "dp_iclrec": ("ICLRec", 2, 1, False, 1),
+    "dp_sgl": ("SGL", 2, 1, False, 1),
+    "2x2_ncl": ("NCL", 2, 2, True, 1),
+    "2x2_cl4srec": ("CL4SRec", 2, 2, True, 1),
+    "ep_gnn": ("GNN", 1, 2, True, 1),
+    "ep_simgcl": ("SimGCL", 1, 2, True, 1),
+    "cp_cl4srec": ("CL4SRec", 1, 2, False, 2),
+}
+DIST_ZOO_STEPS = 2  # the first two batches of _dist_inputs (the second's halves unequal)
+# DR4SR+ around SASRec (phase 5's widths, dropout 0): a weighted step, an
+# outer step and a weighted step. name: (data, model axis, shard_embedding).
+# The hypergradient's Neumann step is raised from 1e-3 to 0.1 here: at 1e-3
+# the 3 Hessian-vector products move the hypergradient by less than its
+# HYPER_RTOL check, so a product left out of the all-reduce would not show
+DIST_META_RUNS = {"dp_meta": (2, 1, False), "ep_meta": (1, 2, True)}
+DIST_META_HPO_LR = 0.1
+_TABLE_KEY = "item_embedding.weight"
+
+
+def _dist_model_cfg(workdir, model, cp=1):
+    """Phase 7's (CL4SRec) or phase 8's config of ``model`` at dropout 0."""
+    cfg = _zoo_cfg(workdir, model) if model in ZOO_MODELS else _graph_cfg(workdir, model)
+    cfg["model"]["dropout_rate"] = 0.0
+    if cp > 1:
+        cfg["model"]["context_parallel"] = cp
+    return cfg
+
+
+def _dist_meta_cfgs(workdir):
+    meta, sub = _meta_cfgs(workdir, "SASRec")
+    sub["model"]["dropout_rate"] = 0.0
+    meta["train"]["hpo_learning_rate"] = DIST_META_HPO_LR
+    return meta, sub
+
+
+def _dist_zoo_reference(model, workdir, datasets, device="cuda"):
+    """One rank on the card: ``model``'s checked steps from its initial
+    weights, with the draws the ranks take: (inputs for the ranks, the
+    losses, the first step's gradients)."""
+    cfg = _dist_model_cfg(workdir, model)
+    trainer = Trainer(cfg, datasets, workdir=workdir, device=device)
+    trainer.init_state()
+    init = {k: v.detach().cpu().clone() for k, v in trainer.rec.module.state_dict().items()}
+    trainer.refresh_state(0)
+    state = {k: v.cpu() for k, v in trainer.batch_extras.items() if not k.startswith("edge_")}
+    batches, negs = _dist_inputs(datasets)
+    gen = torch.Generator(device=device).manual_seed(5)
+    aux_draws = getattr(trainer.model_class, "aux_draws", None)
+    steps, losses, grads = [], [], None
+    for batch, neg in list(zip(batches, negs))[:DIST_ZOO_STEPS]:
+        dbatch = trainer.device_batch(batch, is_train=True)
+        views = aux = None
+        if trainer.contrastive:
+            views = augment_views(gen, dbatch["in_item_id"], dbatch["seqlen"], cfg["model"],
+                                  NUM_ITEMS)
+        if aux_draws is not None:
+            aux = aux_draws(gen, dbatch, cfg["model"], NUM_ITEMS)
+        neg = torch.from_numpy(neg).to(device)
+        losses.append(trainer.train_step(dbatch, neg, views=views, aux_draws=aux).item())
+        grads = grads or _full_grads(trainer)
+        steps.append((batch, neg.cpu(), _moved(views, "cpu"), _moved(aux, "cpu")))
+    return {"init": init, "state": state, "steps": steps, "losses": losses, "grads": grads}
+
+
+def _dist_meta_reference(workdir, datasets, device="cuda"):
+    """One rank on the card: DR4SR+'s weighted, outer and weighted steps
+    with the draws the ranks take."""
+    meta, sub = _dist_meta_cfgs(workdir)
+    trainer = MetaTrainer(meta, datasets, workdir=workdir, device=device, sub_config=sub)
+    trainer.init_state()
+    init = {k: v.detach().cpu().clone() for k, v in trainer.rec.module.state_dict().items()}
+    meta_init = {k: v.detach().cpu().clone() for k, v in trainer.meta_params.items()}
+    rng = np.random.default_rng(13)
+    batches, _ = _dist_inputs(datasets)
+    loader = trainer.train_data.get_loader(seed=4099)
+    vb, ob = loader.sample_batch(), loader.sample_batch()
+
+    def draws(batch):  # negatives, Gumbel noise
+        item = batch["item_id"]
+        return (torch.from_numpy(rng.integers(1, NUM_ITEMS, size=item.shape + (1,))),
+                torch.from_numpy(rng.gumbel(size=item.shape + (2,)).astype(np.float32)))
+
+    inputs = {"w1": (batches[1], *draws(batches[1])), "outer": (vb, ob, draws(vb)[0], *draws(ob)),
+              "w2": (batches[1], *draws(batches[1]))}
+    out = _dist_meta_steps(trainer, inputs, lambda x: x.to(device))
+    return {"init": init, "meta_init": meta_init, "inputs": inputs, **out}
+
+
+def _dist_meta_steps(trainer, inputs, rows):
+    """The weighted, outer and weighted steps of ``inputs`` (``rows`` cuts
+    a global draw to this rank's rows on its device): each weighted step's
+    loss, the first's gradients, the hypergradient, the meta parameters
+    after the outer step, each step's collectives and wall time."""
+    from dr4sr_tpu_torch.parallel.collectives import COUNTER
+
+    out = {"losses": [], "collectives": {}, "ms": {}}
+    for step in ("w1", "outer", "w2"):
+        COUNTER.reset()
+        t0 = time.perf_counter()
+        if step == "outer":
+            vb, ob, val_neg, train_neg, noise = inputs[step]
+            hyper = trainer.outer_step(
+                trainer.device_batch(vb, is_train=True), trainer.device_batch(ob, is_train=True),
+                val_neg=rows(val_neg), train_neg=rows(train_neg), noise=rows(noise))
+            out["hyper"] = {k: v.detach().cpu() for k, v in hyper.items()}
+            out["meta"] = {k: v.detach().cpu().clone() for k, v in trainer.meta_params.items()}
+        else:
+            batch, neg, noise = inputs[step]
+            out["losses"].append(trainer.weighted_train_step(
+                trainer.device_batch(batch, is_train=True), neg_id=rows(neg),
+                noise=rows(noise)).item())
+        _sync(trainer.device)
+        out["ms"][step] = (time.perf_counter() - t0) * 1e3
+        out["collectives"][step] = COUNTER.snapshot()
+        if step == "w1":
+            out["grads"] = _full_grads(trainer)
+    return out
+
+
+def _rank_rows(x, axis):
+    """This rank's rows of a reference's global draws: the views' (seq,
+    seqlen) pairs and the augmentation draws' ``start``/``u``; a bare
+    tensor (a draw over the graph's edges or the catalog) is every rank's."""
+    if axis is None or x is None or isinstance(x, torch.Tensor):
+        return x
+    if isinstance(x, dict):
+        return {k: axis.chunk(v, 0) if isinstance(v, torch.Tensor) else v for k, v in x.items()}
+    if isinstance(x, tuple) and all(isinstance(v, torch.Tensor) for v in x):
+        return tuple(axis.chunk(v, 0) for v in x)
+    return type(x)(_rank_rows(v, axis) for v in x)
+
+
+def _views_gather_seq():
+    """Fault: the InfoNCE's views gathered with ``gather_seq``'s backward
+    (each rank's own chunk of the cotangent) in place of ``gather_rows``'."""
+    from dr4sr_tpu_torch.modules import losses
+    from dr4sr_tpu_torch.parallel.collectives import gather_seq
+
+    losses.gather_rows = lambda x, axis, dim=0: gather_seq(x, axis, dim)
+
+
+def _hvps_unreduced():
+    """Fault: the outer step's Hessian-vector products left out of the
+    all-reduce over ``data`` (``hypergradient`` sums 5 trees an outer step:
+    ∂L_val/∂W, the 3 products, ∂(g·p)/∂φ)."""
+    from dr4sr_tpu_torch.meta import hypergrad
+
+    real, calls = hypergrad._sum_over, []
+
+    def skip_products(grads, axis):
+        calls.append(None)
+        return grads if len(calls) % 5 in (2, 3, 4) else real(grads, axis)
+
+    hypergrad._sum_over = skip_products
+
+
+def dist_more_rank(rank, workdir, runs, refs, fault, device="cuda"):
+    """One rank of each of ``runs`` (names of DIST_ZOO_RUNS and
+    DIST_META_RUNS of one world size) in one process, from ``refs``' weights
+    and draws: per run the checked steps' losses and wall times, the first
+    step's gradients, each step's collectives, the attention launches, the
+    local weights after the steps and (NCL, ICLRec) the rank's own per-epoch
+    state; for DR4SR+ the hypergradient and the meta parameters."""
+    from dr4sr_tpu_torch.parallel.collectives import COUNTER
+    from dr4sr_tpu_torch.parallel.mesh import MeshPlan, create_mesh
+
+    if fault is not None:
+        DIST_FAULTS[fault]()
+    datasets = prepare_datasets(TRAIN_CONFIG, root=workdir)
+    results = {}
+    for run in runs:
+        meta = run in DIST_META_RUNS
+        data, model, shard = DIST_META_RUNS[run] if meta else DIST_ZOO_RUNS[run][1:4]
+        plan = MeshPlan(mesh=create_mesh(data=data, model=model, device_type=device),
+                        shard_embedding=shard)
+        flash_attention_fwd.launches = flash_attention_bwd.launches = 0
+        if meta:
+            ref = refs["meta"]
+            meta_cfg, sub = _dist_meta_cfgs(workdir)
+            trainer = MetaTrainer(meta_cfg, datasets, workdir=workdir, device=device,
+                                  sub_config=sub, mesh_plan=plan)
+            trainer.init_state()
+            trainer.set_params(ref["init"])
+            trainer.load_meta({k: v for k, v in ref["meta_init"].items() if k != "tau"},
+                              ref["meta_init"]["tau"].item())
+            axis = trainer.data_axis
+            out = _dist_meta_steps(trainer, ref["inputs"],
+                                   lambda x: (x if axis is None else axis.chunk(x, 0)).to(device))
+        else:
+            name, cp = DIST_ZOO_RUNS[run][0], DIST_ZOO_RUNS[run][4]
+            ref = refs[name]
+            trainer = Trainer(_dist_model_cfg(workdir, name, cp), datasets, workdir=workdir,
+                              device=device, mesh_plan=plan)
+            trainer.init_state()
+            trainer.set_params(ref["init"])
+            out = {"losses": [], "collectives": [], "ms": []}
+            if ref["state"]:
+                trainer.refresh_state(0)
+                out["state"] = {k: trainer.batch_extras[k].cpu() for k in ref["state"]}
+                trainer.batch_extras.update(_moved(ref["state"], device))
+            axis = trainer.data_axis
+            for batch, neg, views, aux in ref["steps"]:
+                dbatch = trainer.device_batch(batch, is_train=True)
+                COUNTER.reset()
+                t0 = time.perf_counter()
+                neg = neg if axis is None else axis.chunk(neg, 0)
+                loss = trainer.train_step(dbatch, neg.to(device),
+                                          views=_moved(_rank_rows(views, axis), device),
+                                          aux_draws=_moved(_rank_rows(aux, axis), device))
+                out["losses"].append(loss.item())
+                out["ms"].append((time.perf_counter() - t0) * 1e3)
+                out["collectives"].append(COUNTER.snapshot())
+                if "grads" not in out:
+                    out["grads"] = _full_grads(trainer, ref["grads"][_TABLE_KEY].shape[0])
+        _sync(device)
+        out["launches"] = (flash_attention_fwd.launches, flash_attention_bwd.launches)
+        out["local"] = {k: v.detach().cpu().clone()
+                        for k, v in trainer.rec.module.state_dict().items()}
+        out["train_batches"] = len(datasets[0].get_loader())
+        results[run] = out
+    return results
+
+
+
+def _dist_zoo_launches_want(run, rank, train_batches):
+    """A rank's attention launches: per step and layer a forward and a
+    backward for each encode with a gradient (CL4SRec 3: the batch and two
+    views; ICLRec 3, and a fourth forward for the pooled encode that picks
+    the intents; the graph models 1), times the ring's blocks under CP
+    (model index + 1); ICLRec's E-step encodes its rows of every train
+    batch once (a forward per layer and batch)."""
+    if run in DIST_META_RUNS:  # two weighted steps; the outer step attends plainly
+        layers = TRAIN_CONFIG["model"]["layer_num"]
+        return 2 * layers, 2 * layers
+    name, data, model, shard, cp = DIST_ZOO_RUNS[run]
+    layers = CONFIG["model"]["layer_num"]
+    fwd, bwd = {"CL4SRec": (3, 3), "ICLRec": (4, 3)}.get(name, (1, 1))
+    blocks = rank % model + 1 if cp > 1 else 1
+    refresh = layers * train_batches if name == "ICLRec" else 0
+    return (layers * DIST_ZOO_STEPS * fwd * blocks + refresh,
+            layers * DIST_ZOO_STEPS * bwd * blocks)
+
+
+def _dist_zoo_collectives_want(run, ref):
+    """A step's collectives (calls, and bytes where given), by kind and
+    axis: the views' all-gathers over ``data`` ([B, D] each; ICLRec's
+    intent labels besides, [B] int64) and an all-reduce of each one's
+    cotangents in its backward, beside the BCE count's and the gradients';
+    the graph models' table all-gathered over ``model`` once a step ([N', D],
+    N' the table's rows padded to the axis) and ep_gather's all-reduces of
+    the looked-up rows ([B/data, L, D] each); CP's ring per layer and
+    encode (10 sends, 4 all-gathers of [B, H, L/2·2, Dh])."""
+    name, data, model, shard, cp = DIST_ZOO_RUNS[run]
+    dim, length, heads = CONFIG["model"]["embed_dim"], 50, CONFIG["model"]["head_num"]
+    layers = CONFIG["model"]["layer_num"]
+    b = BATCH // data
+    rows = ref["init"][_TABLE_KEY].shape[0]
+    padded = -(-rows // model) * model
+    want = {}
+    if data > 1:
+        want["all_reduce:data"] = 2
+        if name in ("CL4SRec", "ICLRec"):
+            want["all_reduce:data"] = 4
+            labels = name == "ICLRec"  # its intent labels, [B] int64
+            want["all_gather:data"] = {"calls": 2 + labels,
+                                       "bytes": 2 * BATCH * dim * 4 + labels * BATCH * 8}
+    if shard:
+        # looked-up rows: the positives and negatives, SASRec's input ids, CL4SRec's two views'
+        lookups = 2 + (name != "GNN") + 2 * (name == "CL4SRec")
+        want["all_reduce:model"] = {"calls": lookups, "bytes": lookups * b * length * dim * 4}
+        if name in ("GNN", "SGL", "SimGCL", "NCL"):
+            want["all_gather:model"] = {"calls": 1, "bytes": padded * dim * 4}
+    if cp > 1:
+        qkv = b * heads * length * (dim // heads) * 4
+        want["all_gather:model"] = {"calls": 4 * layers * 3, "bytes": 4 * layers * 3 * qkv}
+        want["send:model"] = 10 * layers * 3
+    return want
+
+
+def _dist_meta_collectives_want(run, param_bytes, meta_bytes):
+    """DR4SR+'s steps: DP — a weighted step's BCE count and gradients (2
+    all-reduces over ``data``), an outer step's two losses' counts and its
+    5 derivative trees (∂L_val/∂W, 3 Hessian-vector products, ∂(g·p)/∂φ);
+    EP — ep_gather's 3 all-reduces over ``model`` a forward, and in the
+    outer step 3 more for each of the 4 derivatives taken through them with
+    ``create_graph`` (the sum of the ranks' cotangents)."""
+    data, model, shard = DIST_META_RUNS[run]
+    if data > 1:
+        return {"w1": {"all_reduce:data": 2}, "w2": {"all_reduce:data": 2},
+                "outer": {"all_reduce:data": {"calls": 7,
+                                              "bytes": 2 * 4 + 4 * param_bytes + meta_bytes}}}
+    return {"w1": {"all_reduce:model": 3}, "w2": {"all_reduce:model": 3},
+            "outer": {"all_reduce:model": 2 * 3 + 4 * 3}}
+
+
+def _collectives_match(got, want):
+    return {k: (v if isinstance(want.get(k), dict) else v["calls"])
+            for k, v in got.items()} == want
+
+
+def _check_replicas(run, outs, model, shard):
+    for r, out in enumerate(outs):
+        for k, v in out["local"].items():
+            twin = outs[r % model] if (shard and k == _TABLE_KEY) else outs[0]
+            if not torch.equal(v, twin["local"][k]):
+                raise AssertionError(f"dist {run}: replica {k} of rank {r} differs")
+
+
+def check_dist_more_run(run, outs, refs):
+    """A run's ranks against the one-rank reference; returns the summary
+    and raises on the first fault."""
+    meta = run in DIST_META_RUNS
+    if meta:
+        (data, model, shard), ref = DIST_META_RUNS[run], refs["meta"]
+        summary = {"model": "MetaModel/SASRec", "mesh": [data, model], "shard_embedding": shard}
+    else:
+        name, data, model, shard, cp = DIST_ZOO_RUNS[run]
+        ref = refs[name]
+        summary = {"model": name, "mesh": [data, model], "shard_embedding": shard,
+                   "context_parallel": cp, "steps": DIST_ZOO_STEPS}
+    parity = _parity({"cuda": (outs[0]["losses"], outs[0]["grads"]),
+                      "cpu": (ref["losses"], ref["grads"])})
+    summary["vs_one_rank"] = {k: parity[k] for k in ("grad_max_rel_err", "grad_worst_param",
+                                                     "loss_max_abs_err", "losses_card")}
+    summary["step_ms"] = [out["ms"] for out in outs]
+    if not (parity["grad_max_rel_err"] <= GRAD_RTOL and parity["loss_max_abs_err"] <= LOSS_ATOL):
+        raise AssertionError(f"dist {run} vs one rank: {summary['vs_one_rank']} (grads rtol "
+                             f"{GRAD_RTOL} of the largest, losses atol {LOSS_ATOL})")
+    if any(out["losses"] != outs[0]["losses"] for out in outs[1:]):
+        raise AssertionError(f"dist {run}: the ranks' losses differ")
+    _check_replicas(run, outs, model, shard)
+    summary["replicas_bitwise"] = True
+    if meta:
+        rel = _rel_errs(outs[0]["hyper"], ref["hyper"])
+        summary["hyper_rel_err"] = rel
+        if max(rel.values()) > HYPER_RTOL:
+            raise AssertionError(f"dist {run}: hypergradient {rel} of the largest (rtol "
+                                 f"{HYPER_RTOL})")
+        if not all(torch.equal(v, outs[0]["meta"][k]) for out in outs[1:]
+                   for k, v in out["meta"].items()):
+            raise AssertionError(f"dist {run}: the meta parameters differ across ranks")
+        summary["meta_bitwise"] = True
+        nbytes = lambda tree: sum(v.numel() * 4 for v in tree.values())  # noqa: E731
+        want = _dist_meta_collectives_want(run, nbytes(ref["grads"]), nbytes(ref["hyper"]))
+        got = outs[0]["collectives"]
+    elif "state" in outs[0]:
+        if not all(torch.equal(v, outs[0]["state"][k]) for out in outs[1:]
+                   for k, v in out["state"].items()):
+            raise AssertionError(f"dist {run}: the refreshed state differs across ranks")
+        summary["state_bitwise"] = True
+    if not meta:
+        want = _dist_zoo_collectives_want(run, ref)
+        got = outs[0]["collectives"][0]
+    summary["collectives"], summary["collectives_want"] = got, want
+    if meta:
+        bad = [k for k in want if not _collectives_match(got[k], want[k])]
+    else:
+        bad = [] if _collectives_match(got, want) else ["step"]
+    if bad:
+        raise AssertionError(f"dist {run}: collectives {got}, want {want}")
+    launches = [tuple(out["launches"]) for out in outs]
+    want_l = [_dist_zoo_launches_want(run, r, out["train_batches"]) for r, out in enumerate(outs)]
+    summary["launches"] = {"got": launches, "want": want_l}
+    if launches != want_l:
+        raise AssertionError(f"dist {run}: launches {launches}, want {want_l}")
+    return summary
+
+
+def dist_more(workdir, datasets, result, fwd, bwd, device="cuda", fault=None, only=None):
+    """Phase 11's runs of the zoo and DR4SR+ on a mesh (DIST_ZOO_RUNS,
+    DIST_META_RUNS), the ranks of each world size in one spawn; each
+    checked into ``result`` and its launches (summed over the ranks) into
+    ``fwd`` and ``bwd``. ``fault`` patches DIST_FAULTS[fault] into the
+    ranks; ``only`` keeps those runs."""
+    runs = [r for r in (*DIST_ZOO_RUNS, *DIST_META_RUNS) if only is None or r in only]
+    models = {DIST_ZOO_RUNS[r][0] for r in runs if r in DIST_ZOO_RUNS}
+    t0 = time.perf_counter()
+    refs = {m: _dist_zoo_reference(m, workdir, datasets, device) for m in sorted(models)}
+    if any(r in DIST_META_RUNS for r in runs):
+        refs["meta"] = _dist_meta_reference(workdir, datasets, device)
+    result["references_s"] = time.perf_counter() - t0
+    by_world = {}
+    for run in runs:
+        data, model = (DIST_META_RUNS[run][:2] if run in DIST_META_RUNS
+                       else DIST_ZOO_RUNS[run][1:3])
+        by_world.setdefault(data * model, []).append(run)
+    for world, names in sorted(by_world.items()):
+        t0 = time.perf_counter()
+        outs = _spawn(dist_more_rank, world, workdir, device, workdir, names, refs, fault)
+        result[f"spawn_{world}_s"] = time.perf_counter() - t0
+        for run in names:
+            ranks = [out[run] for out in outs]
+            result[run] = check_dist_more_run(run, ranks, refs)
+            fwd[f"dist_{run}"] = sum(o["launches"][0] for o in ranks)
+            bwd[f"dist_{run}"] = sum(o["launches"][1] for o in ranks)
+
+
 def dist(card, workdir, device="cuda"):
     """Phase 11 on phase 6's data: NCCL at world size 1; DP, EP, CP and
-    2 × 2 over gloo on the card against one rank; the ring through both
-    kernels; sharded decode. The ``dist`` line holds what each part read,
+    2 × 2 over gloo on the card against one rank; the contrastive, intent and
+    graph models and DR4SR+ on a mesh (:func:`dist_more`); the ring through
+    both kernels; sharded decode. The ``dist`` line holds what each part read,
     also when one of them fails."""
     cards = torch.cuda.device_count() if device == "cuda" else 0
     result = {"card": card, "backend": DIST_BACKEND, "cards": cards,
@@ -2605,6 +3084,7 @@ def dist(card, workdir, device="cuda"):
             result[run]["run_s"] = time.perf_counter() - t0
             fwd[f"dist_{run}"] = sum(result[run]["launches"]["fwd"])
             bwd[f"dist_{run}"] = sum(result[run]["launches"]["bwd"])
+        dist_more(workdir, datasets, result, fwd, bwd, device)
         result["ring"], result["ring_sends_staged_through_host"] = _spawn(
             dist_ring_rank, 2, workdir, device)[0]
         check_dist_ring(result["ring"])
@@ -3026,17 +3506,21 @@ def _bce_per_rank_denominator():
     """BCE and BPR divide by this rank's count, not the global batch's."""
     from dr4sr_tpu_torch.modules import losses
 
-    local = losses._global_count
-    losses._global_count = lambda mask_f, axis: local(mask_f, None)
+    local = losses.global_count
+    losses.global_count = lambda mask_f, axis: local(mask_f, None)
 
 
 # phase 11's faults (name -> a function that patches it into a rank, called
 # by ``dist_train_rank``), and the run whose check must catch each
 DIST_FAULTS = {"ep_backward_sums": _ep_backward_sums,
                "ring_skips_last_send": _ring_skips_last_send,
-               "bce_per_rank_denominator": _bce_per_rank_denominator}
+               "bce_per_rank_denominator": _bce_per_rank_denominator,
+               "views_gather_seq": _views_gather_seq,
+               "hvps_unreduced": _hvps_unreduced}
 DIST_CONTROLS = {"ep_backward_sums": "ep", "ring_skips_last_send": "cp",
                  "bce_per_rank_denominator": "dp"}
+# the faults of dist_more's runs, and the run whose check must catch each
+DIST_MORE_CONTROLS = {"views_gather_seq": "dp_cl4srec", "hvps_unreduced": "dp_meta"}
 
 
 def dist_controls(workdir, device="cuda"):
@@ -3054,6 +3538,15 @@ def dist_controls(workdir, device="cuda"):
             caught, why = False, None
         except AssertionError as e:
             caught, why = True, str(e)[:200]
+        log(f"control {json.dumps({'path': 'dist', 'fault': fault, 'run': run,
+                                   'caught': caught, 'why': why})}")
+    for fault, run in DIST_MORE_CONTROLS.items():
+        result = {}
+        try:
+            dist_more(workdir, datasets, result, {}, {}, device, fault=fault, only=(run,))
+            caught, why = False, None
+        except AssertionError as e:
+            caught, why = True, str(e)[:300]
         log(f"control {json.dumps({'path': 'dist', 'fault': fault, 'run': run,
                                    'caught': caught, 'why': why})}")
 

@@ -19,9 +19,11 @@ products pass through must differentiate twice: attention through
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, List, Optional
 
 import torch
+
+from dr4sr_tpu_torch.parallel.collectives import Axis, all_reduce_
 
 Tree = Dict[str, torch.Tensor]
 
@@ -93,6 +95,15 @@ def _grads(outputs, inputs, grad_outputs=None, create_graph=False) -> list:
     return [torch.zeros_like(x) if g is None else g for x, g in zip(inputs, got)]
 
 
+def _sum_over(grads: List[torch.Tensor], axis: Optional[Axis]) -> List[torch.Tensor]:
+    """Each tensor summed over ``axis``, all in one all-reduce; no gradient."""
+    if axis is None:
+        return grads
+    flat = torch.cat([g.detach().reshape(-1) for g in grads])
+    all_reduce_(flat, axis)
+    return [x.view_as(g) for x, g in zip(flat.split([g.numel() for g in grads]), grads)]
+
+
 def hypergradient(
     train_loss_fn: Callable[[Tree, Tree], torch.Tensor],  # (params, meta) -> loss
     val_loss_fn: Callable[[Tree], torch.Tensor],  # params -> loss
@@ -100,6 +111,7 @@ def hypergradient(
     meta_params: Tree,
     lr: float = 0.1,
     truncate_iter: int = 3,
+    axis: Optional[Axis] = None,
 ) -> Tree:
     """dL_val/dφ by the truncated-Neumann inverse-HVP, the reference's
     iteration (``utils/utils.py:180-205``):
@@ -111,19 +123,22 @@ def hypergradient(
     ``params`` (W) and ``meta_params`` (φ) are dicts of tensors that
     require grad; each loss function is called once and must compute its
     loss from those tensors (directly, or through a module whose parameters
-    they are). Returns a dict of φ's shapes; no ``.grad`` is written."""
+    they are). ``axis`` (the data axis): each loss is this rank's share,
+    and every derivative is summed over it (see the module docstring).
+    Returns a dict of φ's shapes; no ``.grad`` is written."""
     w_names = list(params)
     w = [params[k] for k in w_names]
     m = list(meta_params.values())
-    v1 = dict(zip(w_names, _grads(val_loss_fn(params), w)))
+    v1 = dict(zip(w_names, _sum_over(_grads(val_loss_fn(params), w), axis)))
     g = dict(zip(w_names, _grads(train_loss_fn(params, meta_params), w, create_graph=True)))
 
     def hvp(v: Tree) -> Tree:
-        return dict(zip(w_names, _grads([g[k] for k in w_names], w, [v[k] for k in w_names])))
+        hv = _grads([g[k] for k in w_names], w, [v[k] for k in w_names])
+        return dict(zip(w_names, _sum_over(hv, axis)))
 
     p = v = v1
     for _ in range(truncate_iter):
         v = tree_sub(v, tree_scale(hvp(v), lr))
         p = tree_add(p, v)
-    v3 = _grads(tree_vdot(g, p), m)  # p is a constant: d/dφ [g · p]
+    v3 = _sum_over(_grads(tree_vdot(g, p), m), axis)  # p is a constant: d/dφ [g · p]
     return {k: -x for k, x in zip(meta_params, v3)}

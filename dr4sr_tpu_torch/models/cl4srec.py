@@ -27,18 +27,20 @@ from dr4sr_tpu_torch.models.sasrec import SASRec
 from dr4sr_tpu_torch.modules.augmentation import augment
 from dr4sr_tpu_torch.modules.layers import seq_pooling
 from dr4sr_tpu_torch.modules.losses import info_nce_loss
+from dr4sr_tpu_torch.parallel.collectives import Axis
 
 View = Tuple[torch.Tensor, torch.Tensor]  # (seq [B, L], seqlen [B])
 
 
 def augment_views(generator: Optional[torch.Generator], seq: torch.Tensor,
                   seqlen: torch.Tensor, model_cfg: Dict[str, Any],
-                  num_items: int) -> Tuple[View, View]:
+                  num_items: int, axis: Optional[Axis] = None) -> Tuple[View, View]:
     """Two independent views of the batch, as ``model_cfg`` configures them
-    (``augment_type``, ``tau``, ``gamma``, ``beta``; mask id ``num_items``)."""
+    (``augment_type``, ``tau``, ``gamma``, ``beta``; mask id ``num_items``);
+    given the data axis, this rank's rows of the global batch's views."""
     kw = dict(kind=model_cfg.get("augment_type", "item_random"),
               tao=float(model_cfg.get("tau", 0.2)), gamma=float(model_cfg.get("gamma", 0.7)),
-              beta=float(model_cfg.get("beta", 0.2)), mask_id=num_items)
+              beta=float(model_cfg.get("beta", 0.2)), mask_id=num_items, axis=axis)
     return augment(generator, seq, seqlen, **kw), augment(generator, seq, seqlen, **kw)
 
 
@@ -52,18 +54,29 @@ def cl_loss(
     generator: Optional[torch.Generator] = None,
     views: Optional[Sequence[View]] = None,
     reduce: bool = True,
+    axis: Optional[Axis] = None,
+    global_mask: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """The contrastive term: two augmented views → the encoder in train
     mode → mean-pooled reps → InfoNCE over the rows with ``seqlen > 1`` and
     ``valid``. ``views`` gives the two views instead of drawing them from
-    ``generator``."""
+    ``generator``.
+
+    Under data parallelism (``axis``, the data axis) ``seq``, ``seqlen``,
+    ``valid`` and ``views`` are this rank's rows; the views are drawn for
+    the global batch in lockstep and cut to them; ``global_mask`` is the
+    global batch's ``seqlen > 1`` and ``valid`` [b · W], which every rank
+    has from the host batch; the InfoNCE scores this rank's rows against
+    the views gathered over the axis (``losses.info_nce_loss``)."""
     if views is None:
-        views = augment_views(generator, seq, seqlen, model_cfg, num_items)
+        views = augment_views(generator, seq, seqlen, model_cfg, num_items, axis)
     module.train()
     reps = [seq_pooling(module({"in_item_id": s, "seqlen": n}, need_pooling=False), n, "mean")
             for s, n in views]
+    if axis is None:
+        global_mask = (seqlen > 1) & valid
     return info_nce_loss(reps[0], reps[1], temperature=float(model_cfg.get("temperature", 1.0)),
-                         valid=(seqlen > 1) & valid, reduce=reduce)
+                         valid=global_mask, reduce=reduce, axis=axis)
 
 
 def host_pick_refusal(config: Dict[str, Any]) -> Optional[str]:

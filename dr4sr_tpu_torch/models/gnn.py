@@ -12,7 +12,10 @@ table (``model/basemodel.py:206``).
 The graph is built on the host once (numpy and scipy) and rides in every
 batch as ``edge_row``/``edge_col``/``edge_weight`` (the trainer's
 ``batch_extras``); on the device a layer is a gather and an ``index_add``
-(``modules/graph_augmentation.py::propagate_step``).
+(``modules/graph_augmentation.py::propagate_step``). Under EP the item
+table is row-sharded like every other model's; the propagation reads it
+whole (``parallel.ep.full_table``, an all-gather over ``model``) on every
+rank, and scores still come from the raw sharded table.
 """
 
 from __future__ import annotations
@@ -24,11 +27,12 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from dr4sr_tpu_torch.models.base import embedding_init_
+from dr4sr_tpu_torch.models.base import item_embedding
 from dr4sr_tpu_torch.models.registry import register_model
 from dr4sr_tpu_torch.models.sasrec import SASRecEncoder
 from dr4sr_tpu_torch.modules.graph_augmentation import Graph, propagate_mean
 from dr4sr_tpu_torch.modules.layers import seq_pooling
+from dr4sr_tpu_torch.parallel.ep import full_table
 
 
 def build_transition_graph(
@@ -88,8 +92,8 @@ class GNNEncoder(nn.Module):
                  generator: Optional[torch.Generator] = None) -> None:
         super().__init__()
         self.gnn_layers = gnn_layers
-        self.item_embedding = nn.Embedding(num_items, embed_dim)
-        embedding_init_(self.item_embedding.weight, generator)
+        self.num_items = num_items
+        self.item_embedding = item_embedding(num_items, embed_dim, generator)
         self.backbone = SASRecEncoder(
             num_items=1, embed_dim=embed_dim, max_seq_len=max_seq_len, num_heads=num_heads,
             hidden_size=hidden_size, num_layers=num_layers, dropout=dropout,
@@ -97,9 +101,10 @@ class GNNEncoder(nn.Module):
         del self.backbone.item_embedding
 
     def forward(self, batch: Dict[str, torch.Tensor], need_pooling: bool = True) -> torch.Tensor:
-        # the JAX package's ``propagate``: the mean of layers 0..gnn_layers
-        raw = self.item_embedding.weight
-        table = propagate_mean(batch_graph(batch, raw.shape[0]), raw, self.gnn_layers)
+        # the JAX package's ``propagate``: the mean of layers 0..gnn_layers,
+        # over the whole table (gathered over ``model`` under EP)
+        raw = full_table(self.item_embedding.weight, self.num_items)
+        table = propagate_mean(batch_graph(batch, self.num_items), raw, self.gnn_layers)
         seq = batch["in_item_id"]
         inner = {"seq_emb": F.embedding(seq, table), "key_padding_mask": seq == 0,
                  "input_weight": batch.get("input_weight")}

@@ -15,6 +15,13 @@ times: the main loss, the pooled representation that picks each row's
 intent (no gradient: it feeds only an argmin), and the two views.
 
 As CL4SRec, the item table has one extra row, the mask token ``num_items``.
+
+Under data parallelism the views are drawn for the global batch in
+lockstep and each rank keeps its rows; the InfoNCE terms score them
+against the views and intent labels gathered over ``data``
+(``iclrec_cl_losses``). The E-step encodes each rank's share of every
+train batch and gathers the representations over ``data``, so every rank
+fits its k-means on the rows one process fits it on.
 """
 
 from __future__ import annotations
@@ -34,6 +41,7 @@ from dr4sr_tpu_torch.modules.graph_augmentation import (
     kmeans_init,
 )
 from dr4sr_tpu_torch.modules.layers import seq_pooling
+from dr4sr_tpu_torch.parallel.collectives import Axis, all_gather
 
 Batch = Dict[str, torch.Tensor]
 
@@ -56,18 +64,25 @@ class ICLRec(SASRec):
     @torch.no_grad()
     def pooled_train_reps(trainer) -> torch.Tensor:
         """[N, D] the mean-pooled representations of the train rows, in
-        order (the unshuffled loader, padded rows left out), eval mode."""
+        order (the unshuffled loader, padded rows left out), eval mode.
+        Under data parallelism each rank encodes its rows of every batch,
+        and one all-gather over ``data`` (along the batch rows, so every
+        batch's rows come back in the global order) gives all of them."""
         module = trainer.rec.module
         was_training = module.training
         module.eval()
-        reps = []
+        reps, valid = [], []
         try:
             for batch in trainer.train_data.get_loader(shuffle=False):
                 b = trainer.device_batch(batch, is_train=True)
-                reps.append(_mean_rep(module, b["in_item_id"], b["seqlen"])[b["valid"]])
+                reps.append(_mean_rep(module, b["in_item_id"], b["seqlen"]))
+                valid.append(b.get("global_valid", b["valid"]))
         finally:
             module.train(was_training)
-        return torch.cat(reps)
+        reps = torch.stack(reps)  # [batches, rows, D]
+        if trainer.data_axis is not None:
+            reps = all_gather(reps, trainer.data_axis, dim=1)
+        return reps[torch.stack(valid)]
 
     @staticmethod
     def refresh_state(trainer, nepoch: int) -> Dict[str, torch.Tensor]:
@@ -80,22 +95,24 @@ class ICLRec(SASRec):
 
     @staticmethod
     def aux_draws(generator: Optional[torch.Generator], batch: Batch, model_cfg,
-                  num_items: int):
+                  num_items: int, axis: Optional[Axis] = None):
         """The two views' augmentation draws (``augment_type``, at the
-        augmentations' default ratios, as the JAX package's ``augment`` call)."""
+        augmentations' default ratios, as the JAX package's ``augment``
+        call); given the data axis, this rank's rows of the global batch's."""
         kind = model_cfg.get("augment_type", "item_random")
-        return [sample_draws(generator, batch["in_item_id"], batch["seqlen"], kind)
+        return [sample_draws(generator, batch["in_item_id"], batch["seqlen"], kind, axis=axis)
                 for _ in range(2)]
 
     @staticmethod
-    def aux_loss(module, batch: Batch, model_cfg, num_items: int, draws):
+    def aux_loss(module, batch: Batch, model_cfg, num_items: int, draws,
+                 axis: Optional[Axis] = None):
         seq, seqlen = batch["in_item_id"], batch["seqlen"]
         with torch.no_grad():
             pooled = _mean_rep(module, seq, seqlen)
+        valid = batch.get("valid") if axis is None else batch["global_valid"]
         out = iclrec_cl_losses(
             lambda s, n: module({"in_item_id": s, "seqlen": n}, need_pooling=False),
             seq, seqlen, pooled, KMeansState(batch["intent_centroids"], None), num_items,
-            draws, temperature=float(model_cfg.get("temperature", 1.0)),
-            valid=batch.get("valid"))
+            draws, temperature=float(model_cfg.get("temperature", 1.0)), valid=valid, axis=axis)
         return (float(model_cfg.get("instance_weight", 0.1)) * out["instance_cl_loss"]
                 + float(model_cfg.get("intent_weight", 0.1)) * out["intent_cl_loss"])

@@ -16,7 +16,11 @@ streams of ``jax.random`` and torch differ, so tests feed JAX's draws in):
 
 :func:`sample_draws` draws one kind's tensors; for ``item_random`` it first
 picks ONE branch for the whole batch (JAX's ``lax.switch``), not one per
-row. :func:`augment` = :func:`apply_draws` ∘ :func:`sample_draws`.
+row. Under data parallelism (``axis``, the data axis) it draws for the
+global batch from a generator in lockstep on every rank and keeps this
+rank's rows, so the ranks' views are one process's, draw for draw; the
+pick is one draw a batch, the same on every rank.
+:func:`augment` = :func:`apply_draws` ∘ :func:`sample_draws`.
 :func:`random_augmentation` picks per row between a draw for short rows and
 one for long rows (reference ``Random_Augmentation``).
 """
@@ -26,6 +30,8 @@ from __future__ import annotations
 from typing import Dict, Optional, Sequence, Tuple
 
 import torch
+
+from dr4sr_tpu_torch.parallel.collectives import Axis
 
 Seq = torch.Tensor  # [B, L] int
 Lens = torch.Tensor  # [B] int
@@ -75,28 +81,41 @@ def item_reorder(seq: Seq, seqlen: Lens, beta: float, start: Lens,
     return torch.gather(seq, 1, perm), seqlen
 
 
-def _window_starts(generator: Optional[torch.Generator], seqlen: Lens, sub_len: Lens) -> Lens:
+def _rand(generator: Optional[torch.Generator], shape, device,
+          axis: Optional[Axis]) -> torch.Tensor:
+    """Uniforms of ``shape``; given the data axis, drawn for the global batch
+    (``shape[0]`` × the axis size rows) and cut to this rank's rows."""
+    if axis is None:
+        return torch.rand(shape, generator=generator, device=device)
+    u = torch.rand((shape[0] * axis.size,) + tuple(shape[1:]), generator=generator,
+                   device=device)
+    return axis.chunk(u, 0)
+
+
+def _window_starts(generator: Optional[torch.Generator], seqlen: Lens, sub_len: Lens,
+                   axis: Optional[Axis] = None) -> Lens:
     """Uniform over [0, max(len − sub_len + 1, 1))."""
     hi = torch.clamp(seqlen - sub_len + 1, min=1)
-    u = torch.rand(seqlen.shape, generator=generator, device=seqlen.device)
+    u = _rand(generator, seqlen.shape, seqlen.device, axis)
     return torch.minimum((u * hi).to(seqlen.dtype), hi - 1)
 
 
 def sample_draws(generator: Optional[torch.Generator], seq: Seq, seqlen: Lens, kind: str,
-                 tao: float = 0.2, beta: float = 0.2) -> Draws:
+                 tao: float = 0.2, beta: float = 0.2, axis: Optional[Axis] = None) -> Draws:
     """The draws of one ``kind`` for this batch; ``item_random`` picks the
-    kind first, one for the whole batch."""
+    kind first, one for the whole batch. ``axis`` (the data axis): this
+    rank's rows of the global batch's draws."""
     if kind == "item_random":
         pick = torch.randint(0, len(KINDS), (1,), generator=generator, device=seq.device)
         kind = KINDS[int(pick)]
     draws: Draws = {"kind": kind, "start": None, "u": None}
     if kind == "item_crop":
-        draws["start"] = _window_starts(generator, seqlen, crop_len(seqlen, tao))
+        draws["start"] = _window_starts(generator, seqlen, crop_len(seqlen, tao), axis)
     elif kind == "item_mask":
-        draws["u"] = torch.rand(seq.shape, generator=generator, device=seq.device)
+        draws["u"] = _rand(generator, seq.shape, seq.device, axis)
     elif kind == "item_reorder":
-        draws["start"] = _window_starts(generator, seqlen, _scaled_len(beta, seqlen))
-        draws["u"] = torch.rand(seq.shape, generator=generator, device=seq.device)
+        draws["start"] = _window_starts(generator, seqlen, _scaled_len(beta, seqlen), axis)
+        draws["u"] = _rand(generator, seq.shape, seq.device, axis)
     else:
         raise ValueError(f"unknown augmentation kind {kind!r}")
     return draws
@@ -116,8 +135,8 @@ def apply_draws(seq: Seq, seqlen: Lens, draws: Draws, tao: float = 0.2, gamma: f
 
 def augment(generator: Optional[torch.Generator], seq: Seq, seqlen: Lens,
             kind: str = "item_random", tao: float = 0.2, gamma: float = 0.7,
-            beta: float = 0.2, mask_id: int = 0) -> Tuple[Seq, Lens]:
-    draws = sample_draws(generator, seq, seqlen, kind, tao=tao, beta=beta)
+            beta: float = 0.2, mask_id: int = 0, axis: Optional[Axis] = None) -> Tuple[Seq, Lens]:
+    draws = sample_draws(generator, seq, seqlen, kind, tao=tao, beta=beta, axis=axis)
     return apply_draws(seq, seqlen, draws, tao=tao, gamma=gamma, beta=beta, mask_id=mask_id)
 
 

@@ -8,8 +8,7 @@ augmentations, and the Lloyd k-means that replaces the reference's faiss.
 As in the JAX package, a graph is a fixed-shape COO edge list ``(row, col,
 weight)``: dropout zeroes weights instead of removing edges. A propagation
 layer is a gather of the source rows (``index_select``) and a segment sum
-over the target rows (``index_add``, atomic adds on the card); the
-backward of each is the other.
+over the target rows, made deterministic (:func:`propagate_step`).
 
 Every random augmentation is a function of its draws, as
 ``modules/augmentation.py`` is, so the tests feed JAX's draws in:
@@ -35,6 +34,7 @@ import torch
 from dr4sr_tpu_torch.modules.augmentation import Draws, apply_draws
 from dr4sr_tpu_torch.modules.layers import seq_pooling
 from dr4sr_tpu_torch.modules.losses import _normalize, info_nce_loss
+from dr4sr_tpu_torch.parallel.collectives import Axis, all_gather, gather_rows
 
 _NEG = -1e30
 
@@ -130,11 +130,51 @@ def sample_keep(generator: Optional[torch.Generator], n: int, dropout_ratio: flo
     return torch.rand(n, generator=generator, device=device) < 1.0 - dropout_ratio
 
 
-def propagate_step(g: Graph, emb: torch.Tensor) -> torch.Tensor:
-    """One layer: ``out[row] += weight · emb[col]`` over the edges."""
-    msgs = emb.index_select(0, g.col) * g.weight[:, None]
-    return torch.zeros((g.num_nodes, emb.shape[1]), dtype=msgs.dtype,
-                       device=emb.device).index_add(0, g.row, msgs)
+class _Rows(NamedTuple):
+    """A graph's edges grouped by target row: the stable permutation that
+    sorts them (a row's edges keep their order), the sorted rows, and each
+    row's edge count."""
+
+    order: torch.Tensor  # [E]
+    row: torch.Tensor  # [E], sorted
+    counts: torch.Tensor  # [num_nodes]
+
+
+def _rows(g: Graph) -> _Rows:
+    order = torch.argsort(g.row, stable=True)
+    counts = torch.zeros(g.num_nodes, dtype=g.row.dtype, device=g.row.device).scatter_add_(
+        0, g.row, torch.ones_like(g.row))
+    return _Rows(order, g.row[order], counts)
+
+
+class _SegmentSum(torch.autograd.Function):
+    """Each row's sum of its messages (sorted by row, ``counts`` a row), in
+    their order: ``segment_reduce``, a reduction per row with no atomics.
+    Its backward is a gather, itself differentiable (DR4SR+'s outer step
+    takes a second derivative through a graph sub-model)."""
+
+    @staticmethod
+    def forward(ctx, msgs, row, counts):
+        ctx.save_for_backward(row)
+        return torch.segment_reduce(msgs, "sum", lengths=counts, axis=0, unsafe=True)
+
+    @staticmethod
+    def backward(ctx, grad):
+        (row,) = ctx.saved_tensors
+        return grad.index_select(0, row), None, None
+
+
+def propagate_step(g: Graph, emb: torch.Tensor, rows: Optional[_Rows] = None) -> torch.Tensor:
+    """One layer: ``out[row] += weight · emb[col]`` over the edges, each
+    row's messages summed in their order by a segment sum: the same bits on
+    every run and every rank. (An atomic ``index_add`` on the card adds in
+    any order, so two ranks that propagate the same table, as EP's
+    ``model`` ranks do, drift apart; at the amazon-toys graph on the H100
+    the segment sum also takes no longer: PERF.md §6.) ``rows`` is
+    :func:`_rows` of ``g``, made once a propagation."""
+    rows = rows or _rows(g)
+    msgs = emb.index_select(0, g.col[rows.order]) * g.weight[rows.order][:, None]
+    return _SegmentSum.apply(msgs, rows.row, rows.counts)
 
 
 def propagate_mean(g: Graph, embeddings: torch.Tensor, num_layers: int,
@@ -142,9 +182,10 @@ def propagate_mean(g: Graph, embeddings: torch.Tensor, num_layers: int,
     """LightGCN-style propagation; the mean over layers 0..L. ``noise``
     ([num_layers, N, D] uniforms in [0, 1)) adds SimGCL's perturbation to
     every layer's output."""
+    rows = _rows(g)
     acc = emb = embeddings
     for layer in range(num_layers):
-        emb = propagate_step(g, emb)
+        emb = propagate_step(g, emb, rows)
         if noise is not None and noise_eps > 0.0:
             # SimGCL: Δ = sign(e) ⊙ (row-L2-normalised uniforms) · ε
             emb = emb + torch.sign(emb) * _normalize(noise[layer]) * noise_eps
@@ -154,9 +195,10 @@ def propagate_mean(g: Graph, embeddings: torch.Tensor, num_layers: int,
 
 def propagate_layers(g: Graph, embeddings: torch.Tensor, num_layers: int) -> list:
     """Every layer's embeddings [0..L] (NCL reads layer 2k)."""
+    rows = _rows(g)
     out = [embeddings]
     for _ in range(num_layers):
-        out.append(propagate_step(g, out[-1]))
+        out.append(propagate_step(g, out[-1], rows))
     return out
 
 
@@ -166,13 +208,19 @@ def propagate_layers(g: Graph, embeddings: torch.Tensor, num_layers: int) -> lis
 
 
 def info_nce_all(rep_i: torch.Tensor, rep_j: torch.Tensor, all_reps: torch.Tensor,
-                 temperature: float = 1.0) -> torch.Tensor:
+                 temperature: float = 1.0, axis: Optional[Axis] = None) -> torch.Tensor:
     """``neg_type='all'``: logsumexp over the whole catalog minus the
-    positive's similarity, cosine (reference ``InfoNCELoss`` ``:382-402``)."""
+    positive's similarity, cosine (reference ``InfoNCELoss`` ``:382-402``),
+    averaged over the rows. The negatives are the catalog's, not the
+    batch's, so under data parallelism (``axis``) the rows need no gather:
+    this rank's sum over its rows divides by the global batch's row count."""
     rep_i, rep_j, all_reps = _normalize(rep_i), _normalize(rep_j), _normalize(all_reps)
     sim_ij = rep_i @ all_reps.T / temperature  # [B, N]
     sim_ii = (rep_i * rep_j).sum(-1) / temperature  # [B]
-    return (torch.logsumexp(sim_ij.float(), dim=-1) - sim_ii.float()).mean()
+    per_row = torch.logsumexp(sim_ij.float(), dim=-1) - sim_ii.float()
+    if axis is None:
+        return per_row.mean()
+    return per_row.sum() / (per_row.shape[0] * axis.size)
 
 
 # ---------------------------------------------------------------------------
@@ -239,24 +287,37 @@ def iclrec_cl_losses(
     views: Tuple[Draws, Draws],
     temperature: float = 1.0,
     valid: Optional[torch.Tensor] = None,
+    axis: Optional[Axis] = None,
 ) -> Dict[str, torch.Tensor]:
     """ICLRec: instance CL between two augmented views (``views``: their
     draws, the augmentations at their default ratios with mask id
     ``num_items``), and intent CL against each row's nearest k-means
-    centroid with same-intent de-noising (reference ``ICLRecAugmentation``)."""
+    centroid with same-intent de-noising (reference ``ICLRecAugmentation``).
+
+    Under data parallelism (``axis``) the rows are this rank's and
+    ``valid`` is the global batch's: the two views are gathered over the
+    axis once (``gather_rows``) and serve all four InfoNCE terms, and so
+    are the rows' intent labels (no gradient), which give the intent
+    columns and the same-intent mask."""
     outs = []
     for draws in views:
         s, n = apply_draws(seq, seqlen, draws, mask_id=num_items)
         outs.append(seq_pooling(encode_fn(s, n), n, "mean"))
     out_i, out_j = outs
-    instance = 0.5 * (info_nce_loss(out_i, out_j, temperature, valid=valid)
-                      + info_nce_loss(out_j, out_i, temperature, valid=valid))
+    col_i, col_j = ((out_i, out_j) if axis is None
+                    else (gather_rows(out_i, axis), gather_rows(out_j, axis)))
+    kw = dict(valid=valid, axis=axis)
+    instance = 0.5 * (info_nce_loss(out_i, out_j, temperature, columns=(col_i, col_j), **kw)
+                      + info_nce_loss(out_j, out_i, temperature, columns=(col_j, col_i), **kw))
     intent_ids = nearest(seq_out_pooled.detach().float(), intent_state.centroids)
+    if axis is not None:
+        intent_ids = all_gather(intent_ids, axis, dim=0)
     seq2intents = intent_state.centroids[intent_ids]
     intent = 0.5 * (
-        info_nce_loss(out_i, seq2intents, temperature, instance_labels=intent_ids, valid=valid)
-        + info_nce_loss(out_j, seq2intents, temperature, instance_labels=intent_ids,
-                        valid=valid))
+        info_nce_loss(out_i, None, temperature, instance_labels=intent_ids,
+                      columns=(col_i, seq2intents), **kw)
+        + info_nce_loss(out_j, None, temperature, instance_labels=intent_ids,
+                        columns=(col_j, seq2intents), **kw))
     return {"instance_cl_loss": instance, "intent_cl_loss": intent}
 
 

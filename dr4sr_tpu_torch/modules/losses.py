@@ -23,22 +23,23 @@ package's mean over the sharded global batch does. Each rank's loss is
 then its share of the global loss, and the sum of the ranks' gradients,
 which the trainer takes over the ``data`` group, is the global batch's
 gradient. Averaging per-rank means would be wrong: the shards have
-unequal target counts.
+unequal target counts. :func:`info_nce_loss` compares rows across the
+global batch: see its docstring.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
-from dr4sr_tpu_torch.parallel.collectives import Axis, all_reduce_
+from dr4sr_tpu_torch.parallel.collectives import Axis, all_reduce_, gather_rows
 
 _NEG = -1e30
 
 
-def _global_count(mask_f: torch.Tensor, axis: Optional[Axis]) -> torch.Tensor:
+def global_count(mask_f: torch.Tensor, axis: Optional[Axis]) -> torch.Tensor:
     """The valid positions of the global batch (at least 1); no gradient."""
     count = mask_f.sum().detach()
     if axis is not None:
@@ -61,7 +62,7 @@ def binary_cross_entropy_loss(
     pos_score = pos_score.float()
     neg_score = neg_score.float()
     mask_f = mask.float()
-    denom = _global_count(mask_f, axis)
+    denom = global_count(mask_f, axis)
     pos_loss = F.logsigmoid(pos_score) * mask_f
     neg_loss = F.softplus(neg_score).mean(dim=-1)
     if pos_score.dim() == neg_score.dim() - 1:
@@ -87,7 +88,7 @@ def bpr_loss(
     pos_score = pos_score.float()
     neg_score = neg_score.float()
     mask_f = mask.float()
-    denom = _global_count(mask_f, axis)
+    denom = global_count(mask_f, axis)
     loss = F.logsigmoid(pos_score[..., None] - neg_score).mean(dim=-1) * mask_f
     if reduce:
         return -loss.sum() / denom
@@ -121,27 +122,45 @@ def uniformity(x: torch.Tensor, valid: Optional[torch.Tensor] = None) -> torch.T
 
 def info_nce_loss(
     rep_i: torch.Tensor,  # [B, D]
-    rep_j: torch.Tensor,  # [B, D]
+    rep_j: Optional[torch.Tensor],  # [B, D]; unread when ``columns`` gives the columns
     temperature: float = 1.0,
     sim_method: str = "inner_product",
     instance_labels: Optional[torch.Tensor] = None,  # [B]
     valid: Optional[torch.Tensor] = None,  # [B] bool; False rows contribute 0
     reduce: bool = True,
     neg_type: str = "batch_both",
+    axis: Optional[Axis] = None,  # the data axis: rows against the global batch
+    columns: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
 ) -> torch.Tensor:
     """In-batch InfoNCE. ``batch_both``: logits [sim_ij | sim_ii] (2B − 1
     negatives) with self (and same-label pairs) masked; ``batch_single``:
     sim_ij only (B − 1 negatives). The label is the row's own column of
-    sim_ij. Rows with ``valid`` False neither count nor act as negatives."""
-    rep_i, rep_j = rep_i.float(), rep_j.float()
+    sim_ij. Rows with ``valid`` False neither count nor act as negatives.
+
+    Under data parallelism (``axis``) ``rep_i`` and ``rep_j`` are this
+    rank's b rows, scored against the global batch's columns: the two
+    views gathered over the axis by ``collectives.gather_rows`` (or
+    ``columns``, the pair gathered already). ``instance_labels`` and
+    ``valid`` are then the global batch's [b · W]: every rank builds the
+    whole host batch, so they need no collective. A row's label, the self
+    mask and the same-label mask take its global index, and the loss
+    divides by the global count of valid rows, so each rank's loss is its
+    share of the global loss."""
     b = rep_i.shape[0]
+    if columns is None:
+        columns = ((rep_i, rep_j) if axis is None
+                   else (gather_rows(rep_i, axis), gather_rows(rep_j, axis)))
+    rep_i = rep_i.float()
+    col_i, col_j = (c.float() for c in columns)
     if sim_method == "cosine":
-        rep_i, rep_j = _normalize(rep_i), _normalize(rep_j)
-    sim_ii = rep_i @ rep_i.T / temperature
-    sim_ij = rep_i @ rep_j.T / temperature
-    eye = torch.eye(b, dtype=torch.bool, device=rep_i.device)
+        rep_i, col_i, col_j = _normalize(rep_i), _normalize(col_i), _normalize(col_j)
+    sim_ii = rep_i @ col_i.T / temperature  # [b, B]
+    sim_ij = rep_i @ col_j.T / temperature
+    offset = 0 if axis is None else axis.index * b
+    rows = torch.arange(offset, offset + b, device=rep_i.device)
+    eye = rows[:, None] == torch.arange(col_i.shape[0], device=rep_i.device)[None, :]
     if instance_labels is not None:
-        same = instance_labels[:, None] == instance_labels[None, :]
+        same = instance_labels[offset:offset + b, None] == instance_labels[None, :]
         sim_ii = sim_ii.masked_fill(same, _NEG)
         sim_ij = sim_ij.masked_fill(same & ~eye, _NEG)
     else:
@@ -151,10 +170,10 @@ def info_nce_loss(
         sim_ii = sim_ii.masked_fill(col_pad, _NEG)
         sim_ij = sim_ij.masked_fill(col_pad & ~eye, _NEG)
     logits = sim_ij if neg_type == "batch_single" else torch.cat([sim_ij, sim_ii], dim=-1)
-    per_row = -torch.diagonal(F.log_softmax(logits, dim=-1))
+    per_row = -F.log_softmax(logits, dim=-1).gather(1, rows[:, None])[:, 0]
     if valid is not None:
-        per_row = torch.where(valid, per_row, 0.0)
+        per_row = torch.where(valid[offset:offset + b], per_row, 0.0)
         count = valid.float().sum().clamp_min(1.0)
     else:
-        count = float(b)
+        count = float(col_i.shape[0])
     return per_row.sum() / count if reduce else per_row / count

@@ -13,10 +13,31 @@ backward rule is written out:
   result is used replicated (``ep_gather``'s, ``parallel/ep.py``).
 * :func:`gather_seq` — forward: all-gather of the ranks' chunks along
   ``dim``, in rank order. Backward: the rank's own chunk of the (replicated)
-  cotangent, no communication.
+  cotangent, no communication. Right where every rank of the axis computes
+  the same loss from the gathered tensor (CP's ``model`` group, the EP
+  table that the graph models propagate).
 * :func:`split_seq` — forward: the rank's chunk along ``dim`` of a
   replicated tensor, no communication. Backward: all-gather of the chunks'
   cotangents.
+* :func:`gather_rows` — forward: all-gather of the ranks' rows along
+  ``dim``, in rank order (as :func:`gather_seq`). Backward: the sum over the
+  axis of the ranks' cotangents, then this rank's rows (a reduce-scatter,
+  made as an all-reduce and the rank's chunk): JAX's transpose of
+  ``all_gather``. This is the rule under data parallelism, where each rank's
+  loss is its own share of the global loss: rank r's rows are negatives in
+  rank s's InfoNCE, so s's cotangent of r's rows must reach r.
+  :func:`gather_seq`'s rule would drop it silently, and the gradient
+  all-reduce that follows sums parameter gradients only.
+
+Each backward is itself made of these functions, so a second derivative
+(DR4SR+'s Hessian-vector products, ``create_graph=True``) differentiates
+it: :func:`gather_seq` and :func:`split_seq` are each other's transpose,
+so are :func:`gather_rows` and the reduce-scatter, and the transpose of
+:func:`all_reduce_sum`'s identity is the sum of the ranks' cotangents. That
+last one moves data only in a second derivative, where the ranks'
+cotangents of a replicated sum differ: under EP each ``model`` rank's
+share of a Hessian-vector product reaches the gathered embeddings only
+through its own table rows, and the whole cotangent is their sum.
 
 The plain collectives below (:func:`all_reduce_`, :func:`all_gather`,
 :func:`broadcast_`, :func:`gather_objects`, :func:`ring_exchange`) take no
@@ -174,11 +195,28 @@ def ring_exchange(tensors: Sequence[torch.Tensor], axis: Axis) -> List[torch.Ten
 class _AllReduceSum(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, axis):
+        ctx.axis = axis
         return all_reduce_(x.clone(), axis)
 
     @staticmethod
     def backward(ctx, grad):
-        return grad, None
+        if not torch.is_grad_enabled():  # a first derivative: the identity
+            return grad, None
+        return _SumOfCotangents.apply(grad, ctx.axis), None
+
+
+class _SumOfCotangents(torch.autograd.Function):
+    """The identity, whose backward sums over the axis: the transpose of
+    :class:`_AllReduceSum`'s backward."""
+
+    @staticmethod
+    def forward(ctx, x, axis):
+        ctx.axis = axis
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _AllReduceSum.apply(grad, ctx.axis), None
 
 
 class _GatherSeq(torch.autograd.Function):
@@ -189,7 +227,7 @@ class _GatherSeq(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, grad):
-        return ctx.axis.chunk(grad, ctx.dim).contiguous(), None, None
+        return _SplitSeq.apply(grad, ctx.axis, ctx.dim), None, None
 
 
 class _SplitSeq(torch.autograd.Function):
@@ -200,7 +238,29 @@ class _SplitSeq(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, grad):
-        return all_gather(grad, ctx.axis, ctx.dim), None, None
+        return _GatherSeq.apply(grad, ctx.axis, ctx.dim), None, None
+
+
+class _GatherRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis, dim):
+        ctx.axis, ctx.dim = axis, dim
+        return all_gather(x, axis, dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _ReduceScatterRows.apply(grad, ctx.axis, ctx.dim), None, None
+
+
+class _ReduceScatterRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis, dim):
+        ctx.axis, ctx.dim = axis, dim
+        return axis.chunk(all_reduce_(x.contiguous().clone(), axis), dim).contiguous()
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _GatherRows.apply(grad, ctx.axis, ctx.dim), None, None
 
 
 def all_reduce_sum(x: torch.Tensor, axis: Axis) -> torch.Tensor:
@@ -223,3 +283,12 @@ def split_seq(x: torch.Tensor, axis: Axis, dim: int = 2) -> torch.Tensor:
     if axis.size == 1:
         return x
     return _SplitSeq.apply(x, axis, dim)
+
+
+def gather_rows(x: torch.Tensor, axis: Axis, dim: int = 0) -> torch.Tensor:
+    """All-gather of the ranks' rows along ``dim``; the gradient of each
+    rank's rows is the sum over the axis of the gathered tensor's
+    gradients, at this rank's rows (see above)."""
+    if axis.size == 1:
+        return x
+    return _GatherRows.apply(x, axis, dim)

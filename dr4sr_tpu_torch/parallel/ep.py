@@ -11,7 +11,10 @@ the ``model`` axis (``MeshPlan(shard_embedding=True)``):
   the table's N·D;
 * its backward is ``F.embedding``'s local scatter-add of the incoming
   cotangent into the rank's shard (the all-reduce's backward is the
-  identity), so no collective of table size is made either.
+  identity), so no collective of table size is made either;
+* :func:`full_table` is the whole table on every rank, for the graph
+  models' propagation, which reads every row: an all-gather over
+  ``model`` cut to the real rows.
 
 The active plan is process-global, as in the JAX package (one model and
 one mesh per process): the trainer installs it around every step and eval
@@ -28,7 +31,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from dr4sr_tpu_torch.parallel.collectives import all_reduce_sum
+from dr4sr_tpu_torch.parallel.collectives import all_reduce_sum, gather_seq
 from dr4sr_tpu_torch.parallel.mesh import MODEL_AXIS, MeshPlan
 
 _PLAN: Optional[MeshPlan] = None
@@ -87,3 +90,18 @@ def ep_gather(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
 def embed_lookup(embedding: nn.Embedding, ids: torch.Tensor) -> torch.Tensor:
     """EP-aware replacement for ``embedding(ids)`` on the item table."""
     return ep_gather(embedding.weight, ids)
+
+
+def full_table(table: torch.Tensor, num_rows: int) -> torch.Tensor:
+    """The first ``num_rows`` rows of the whole item table [num_rows, D],
+    from this rank's rows of a row-sharded ``table`` (the table itself
+    without a plan). The gather takes ``gather_seq``'s backward, the rank's
+    own rows of the cotangent and no communication: every rank of a
+    ``model`` group computes the same loss from the whole table, so the
+    cotangent is replicated over the axis. (Under data parallelism the
+    InfoNCE views take ``gather_rows``' rule instead, whose ranks' losses
+    differ.)"""
+    plan = _PLAN
+    if plan is None or plan.model_size <= 1:
+        return table[:num_rows]
+    return gather_seq(table, plan.axis(MODEL_AXIS), dim=0)[:num_rows]

@@ -29,6 +29,21 @@ Random draws (negatives, Gumbel noise, contrastive views) come from the
 trainer's generator unless the caller passes them, so the CPU tests can
 feed the JAX package's draws in.
 
+On a mesh (data and embedding parallelism; context parallelism is
+refused, as in the JAX package): the weighted step sums its gradients and
+loss over ``data`` as the plain step does, its Gumbel noise is drawn for
+the global batch in lockstep and cut to the rank's rows, and ``mean``
+divides by the global count of weightable positions; the outer step's
+hypergradient sums each of its derivatives over ``data``
+(``meta.hypergrad``), so the meta parameters take one update, the same on
+every rank; the probe's statistics are over the global batch.
+
+A sub-model with an ``aux_loss`` (SGL, SimGCL) adds it in the warm steps,
+which are the plain step, and leaves it out of the weighted loss, as the
+JAX package does. A sub-model with per-epoch state (``refresh_state``:
+NCL, ICLRec) is refused: the JAX package's bilevel epoch never refreshes
+it, and its first step fails on the missing state.
+
 ``train.steps_per_dispatch = N > 1`` groups the inner steps as the JAX
 trainer's fused loop does: outside warm-up a group stops at the next
 ``interval`` boundary, so the outer step between groups sees the state the
@@ -50,10 +65,11 @@ from dr4sr_tpu_torch.config import load_config
 from dr4sr_tpu_torch.data.dataset import SeqDataset
 from dr4sr_tpu_torch.meta.hypergrad import clip_by_global_norm, hypergradient
 from dr4sr_tpu_torch.models import get_model_class
-from dr4sr_tpu_torch.models.cl4srec import cl_loss
 from dr4sr_tpu_torch.models.metamodel import gumbel_softmax_weight
 from dr4sr_tpu_torch.modules.layers import MLP
+from dr4sr_tpu_torch.modules.losses import global_count
 from dr4sr_tpu_torch.ops.attention import plain_attention
+from dr4sr_tpu_torch.parallel.collectives import all_gather
 from dr4sr_tpu_torch.regen.generator import gumbel_noise
 from dr4sr_tpu_torch.train.trainer import Trainer
 
@@ -92,14 +108,7 @@ class MetaTrainer(Trainer):
         ``configs/<sub_model>.yaml`` with the CLI's explicit overrides
         (``config["_cli_overrides"]``, stashed by ``run.py``) applied, unless
         ``sub_config`` gives it ready; either way it takes ``config``'s data
-        section, so the sub-model trains on the same files. A ``mesh_plan``
-        of more than one rank is refused."""
-        if mesh_plan is not None and mesh_plan.data_size * mesh_plan.model_size > 1:
-            raise NotImplementedError(
-                "MetaModel (DR4SR+) at world size > 1: the outer step's Hessian-vector "
-                "products take torch.autograd.grad, which makes none of the gradient "
-                "all-reduces over the data group that the plain step makes; train it on "
-                "one device")
+        section, so the sub-model trains on the same files."""
         if sub_config is None:
             sub_config = load_config(config["model"]["sub_model"], config["data"]["dataset"],
                                      config_dir=config_dir,
@@ -115,11 +124,13 @@ class MetaTrainer(Trainer):
                 "context-parallel ring has no such route. Train the sub-model with CP "
                 "directly, or drop CP for the bilevel run.")
         sub_name = sub_config["model"]["model"]
-        if getattr(get_model_class(sub_name), "aux_loss", None) is not None:
+        if getattr(get_model_class(sub_name), "refresh_state", None) is not None:
             raise NotImplementedError(
-                f"sub_model {sub_name!r} adds an aux_loss, which the weighted inner loss "
-                f"leaves out (as the JAX package's does); DR4SR+ is ported for SASRec, "
-                f"GRU4Rec, FMLP and the CL4SRec models")
+                f"sub_model {sub_name!r}: its aux_loss reads per-epoch state that "
+                f"refresh_state fits (k-means centroids), and the JAX package's bilevel "
+                f"epoch (dr4sr_tpu/train/meta_trainer.py:308-370) never calls it, so its "
+                f"first step fails with a KeyError; DR4SR+ is ported for SASRec, GRU4Rec, "
+                f"FMLP, GNN, the CL4SRec models, SGL and SimGCL")
         super().__init__(sub_config, datasets, workdir=workdir, device=device, mesh_plan=mesh_plan)
         self.model_name = "MetaModel"
 
@@ -192,7 +203,12 @@ class MetaTrainer(Trainer):
         # filled on the device (a host scalar copied in would not capture)
         tau = torch.maximum(meta["tau"], torch.full_like(meta["tau"], self.tau_min))
         if noise is None:
-            noise = gumbel_noise(logits.shape, self.generator, logits.device)
+            axis = self.data_axis
+            if axis is None:
+                noise = gumbel_noise(logits.shape, self.generator, logits.device)
+            else:  # the global batch's draws, this rank's rows
+                noise = axis.chunk(gumbel_noise((logits.shape[0] * axis.size,) + logits.shape[1:],
+                                                self.generator, logits.device), 0)
         return gumbel_softmax_weight(logits, tau, noise), tau
 
     def _weighted_loss(self, batch: Batch, meta: Dict[str, torch.Tensor],
@@ -227,16 +243,9 @@ class MetaTrainer(Trainer):
             if valid is not None:
                 weightable = weightable & valid.reshape(
                     valid.shape + (1,) * (weightable.dim() - valid.dim()))
-            total = total / weightable.sum().clamp_min(1)
+            total = total / global_count(weightable.float(), self.data_axis)
         if self.contrastive:
-            model_cfg = self.config["model"]
-            seq = batch.get("aug_in_item_id", batch["in_item_id"])
-            aug_valid = batch.get("aug_valid", valid)
-            if aug_valid is None:
-                aug_valid = torch.ones(seq.shape[0], dtype=torch.bool, device=seq.device)
-            cl = cl_loss(self.rec.module, seq, batch.get("aug_seqlen", batch["seqlen"]),
-                         aug_valid, model_cfg, self.num_items, self.generator, views=views)
-            total = total + float(model_cfg.get("cl_weight", 0.1)) * cl
+            total = total + self.contrastive_term(batch, views)
         return total
 
     # -------------------------------------------------------------------- steps
@@ -247,10 +256,12 @@ class MetaTrainer(Trainer):
         step reads in place), without the step count."""
         self.optimizer.zero_grad(set_to_none=True)
         meta = {k: v.detach() for k, v in self.meta_params.items()}
-        loss = self._weighted_loss(batch, meta, neg_id=neg_id, views=views, noise=noise)
-        loss.backward()
+        with self._mesh_plans():
+            loss = self._weighted_loss(batch, meta, neg_id=neg_id, views=views, noise=noise)
+            loss.backward()
+        loss = self._sum_over_data(loss.detach())
         self.optimizer.step()
-        return loss.detach()
+        return loss
 
     def weighted_train_step(self, batch: Batch, neg_id: Optional[torch.Tensor] = None,
                             views=None, noise: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -275,12 +286,13 @@ class MetaTrainer(Trainer):
         meta-optimizer step. The val loss draws first, then the train loss,
         each once. Returns the hypergradient before the clip."""
         params = dict(self.rec.module.named_parameters())
-        with plain_attention(), _cudnn_off():
+        with self._mesh_plans(), plain_attention(), _cudnn_off():
             hgrads = hypergradient(
                 lambda p, m: self._weighted_loss(train_batch, m, neg_id=train_neg, views=views,
                                                  noise=noise),
                 lambda p: self.rec.training_loss(val_batch, self.generator, neg_id=val_neg),
-                params, self.meta_params, lr=self.hpo_lr, truncate_iter=_OUTER_TRUNCATE_ITER)
+                params, self.meta_params, lr=self.hpo_lr, truncate_iter=_OUTER_TRUNCATE_ITER,
+                axis=self.data_axis)
         clipped = clip_by_global_norm(hgrads, _OUTER_CLIP_NORM)
         for name, p in self.meta_params.items():
             p.grad = clipped[name].detach()
@@ -293,16 +305,22 @@ class MetaTrainer(Trainer):
                      noise: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
         """The learned weights on a probe batch (train mode, as the weighted
         step sees them), over the real positions of non-pattern rows: mean,
-        std, the shares above 0.9 and below 0.1, and the clipped τ."""
-        loss_ps, query = self.rec.training_loss(batch, self.generator, reduce=False,
-                                                return_query=True)
-        weight, tau = self._weights(query, self.meta_params, noise)
+        std, the shares above 0.9 and below 0.1, and the clipped τ. Under
+        data parallelism the weights and the mask are gathered over
+        ``data`` first, so the statistics are the global batch's."""
+        with self._mesh_plans():
+            loss_ps, query = self.rec.training_loss(batch, self.generator, reduce=False,
+                                                    return_query=True)
+            weight, tau = self._weights(query, self.meta_params, noise)
         if weight.dim() > loss_ps.dim():
             weight = weight[..., 0]
         mask = batch["item_id"] != 0
         mask = mask & (batch["user_id"] != 0).reshape((-1,) + (1,) * (mask.dim() - 1))
         if mask.dim() > weight.dim():
             weight = weight[..., None].expand(mask.shape)
+        if self.data_axis is not None:
+            weight = all_gather(weight, self.data_axis, dim=0)
+            mask = all_gather(mask, self.data_axis, dim=0)
         w = weight[mask]
         return {"weight_mean": w.mean(), "weight_std": w.std(correction=0),
                 "weight_frac_high": (w > 0.9).float().mean(),

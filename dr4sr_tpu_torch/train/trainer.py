@@ -76,11 +76,25 @@ rank), as the JAX trainer places them (its ``:67-72``, ``:118-144``,
   before the host divides, so early stopping decides on the same value on
   every rank; process 0 alone writes checkpoints, state and logs, with the
   table gathered (and saved padded, as the JAX trainer's ``device_get``
-  saves it).
+  saves it);
+* the contrastive and auxiliary terms compare rows across the global
+  batch. A train batch under data parallelism also carries the global
+  batch's ``valid`` and ``seqlen`` (and ``aug_*``) as ``global_<key>``, so
+  the InfoNCE's masks and counts need no collective; views and aux draws
+  are drawn for the global batch in lockstep and cut to the rank's rows;
+  the two views' representations are gathered over ``data``
+  (``collectives.gather_rows``, whose backward brings each rank's
+  cotangent of another rank's rows home). The graph terms take catalog
+  negatives and divide by the global row count. Under EP the graph
+  models propagate the whole table, gathered over ``model``;
+* per-epoch state (:meth:`refresh_state`) is fitted on every rank from
+  the global rows, then broadcast from rank 0, so it is one value on
+  every rank (the card's k-means sums with atomics, which need not round
+  alike on two ranks).
 
-At world size > 1 these are refused with a ``NotImplementedError`` that
-says why: ``train.steps_per_dispatch > 1``, a model with ``contrastive`` or
-``aux_loss``, GNN under EP, and DR4SR+ (``MetaTrainer``).
+At world size > 1 one thing is refused, with a ``NotImplementedError`` that
+says why: ``train.steps_per_dispatch > 1``, whose CUDA graphs would hold the
+collectives.
 """
 
 from __future__ import annotations
@@ -110,7 +124,12 @@ from dr4sr_tpu_torch.models.gnn import build_transition_graph
 from dr4sr_tpu_torch.ops import ring_attention
 from dr4sr_tpu_torch.ops.topk import sharded_masked_topk
 from dr4sr_tpu_torch.parallel import ep
-from dr4sr_tpu_torch.parallel.collectives import all_gather, all_reduce_, gather_objects
+from dr4sr_tpu_torch.parallel.collectives import (
+    all_gather,
+    all_reduce_,
+    broadcast_,
+    gather_objects,
+)
 from dr4sr_tpu_torch.parallel.mesh import (
     DATA_AXIS,
     MODEL_AXIS,
@@ -133,6 +152,8 @@ _ORIGINAL_LOADER_SEED = 7919
 # the dropout stream of data rank d is seeded seed + 1 + d * this
 _DROPOUT_RANK_STRIDE = 7919
 _TABLE = "item_embedding.weight"
+# the keys of the global batch that a data-parallel train batch keeps
+_GLOBAL_KEYS = ("valid", "seqlen", "aug_valid", "aug_seqlen")
 
 
 class _OptaxRMS(torch.optim.Optimizer):
@@ -306,23 +327,12 @@ class Trainer:
         """The refusals at world size > 1, each with its reason."""
         if self.world_size == 1:
             return
-        name = self.model_name
         if self.steps_per_dispatch > 1:
             raise NotImplementedError(
                 f"train.steps_per_dispatch={self.steps_per_dispatch} at world size "
                 f"{self.world_size}: a CUDA graph of the steps would hold the collectives "
                 f"(the gradient all-reduce, the EP gathers, the ring), which the port "
                 f"does not capture yet; use 1")
-        if getattr(self.model_class, "contrastive", False) or getattr(
-                self.model_class, "aux_loss", None) is not None:
-            raise NotImplementedError(
-                f"{name} at world size {self.world_size}: its contrastive or auxiliary "
-                f"loss compares rows across the global batch (in-batch InfoNCE), which "
-                f"needs an all-gather of the views that the port does not make yet")
-        if self.plan.ep_sharded() and getattr(self.model_class, "needs_graph", False):
-            raise NotImplementedError(
-                f"{name} with a row-sharded item table: its graph propagation reads the "
-                f"whole table; shard the batch (data parallelism) only")
 
     @contextlib.contextmanager
     def _mesh_plans(self):
@@ -425,10 +435,15 @@ class Trainer:
     def host_shard(self, batch: Dict[str, np.ndarray],
                    is_train: bool = False) -> Dict[str, np.ndarray]:
         """:meth:`host_transform`, then under a mesh this rank's rows of the
-        global batch padded to a multiple of the ``data`` axis."""
+        global batch padded to a multiple of the ``data`` axis; a train
+        batch keeps the padded global batch's ``valid`` and ``seqlen`` (and
+        ``aug_*``) as ``global_<key>``."""
         batch = self.host_transform(batch, is_train)
         if self.plan.data_size > 1:
-            batch = shard_batch(pad_batch_to_multiple(batch, self.plan.data_size), self.plan)
+            padded = pad_batch_to_multiple(batch, self.plan.data_size)
+            batch = shard_batch(padded, self.plan)
+            if is_train:
+                batch.update({f"global_{k}": padded[k] for k in _GLOBAL_KEYS if k in padded})
         return batch
 
     def device_batch(self, batch: Dict[str, np.ndarray],
@@ -469,31 +484,43 @@ class Trainer:
         ``views`` and ``aux_draws`` give them."""
         loss = self.rec.training_loss(batch, self.generator, neg_id=neg_id)
         if self.contrastive:
-            valid = batch.get("aug_valid", batch.get("valid"))
-            seq = batch.get("aug_in_item_id", batch["in_item_id"])
-            if valid is None:
-                valid = torch.ones(seq.shape[0], dtype=torch.bool, device=seq.device)
-            model_cfg = self.config["model"]
-            cl = cl_loss(self.rec.module, seq, batch.get("aug_seqlen", batch["seqlen"]), valid,
-                         model_cfg, self.num_items, self.generator, views=views)
-            loss = loss + float(model_cfg.get("cl_weight", 0.1)) * cl
+            loss = loss + self.contrastive_term(batch, views)
         aux_loss = getattr(self.model_class, "aux_loss", None)
         if aux_loss is not None:
             model_cfg = self.config["model"]
             if aux_draws is None:
                 aux_draws = self.model_class.aux_draws(self.generator, batch, model_cfg,
-                                                       self.num_items)
-            loss = loss + aux_loss(self.rec.module, batch, model_cfg, self.num_items, aux_draws)
+                                                       self.num_items, axis=self.data_axis)
+            loss = loss + aux_loss(self.rec.module, batch, model_cfg, self.num_items, aux_draws,
+                                   axis=self.data_axis)
         return loss.float()
 
-    def _update(self, batch: Dict[str, torch.Tensor],
-                neg_id: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def contrastive_term(self, batch: Dict[str, torch.Tensor], views=None) -> torch.Tensor:
+        """``cl_weight`` × the InfoNCE of two views of the batch's rows (its
+        ``aug_*`` rows when it has them), over the rows with ``seqlen > 1``
+        and ``valid``; under data parallelism against the global batch."""
+        prefix = "aug_" if "aug_in_item_id" in batch else ""
+        seq = batch[f"{prefix}in_item_id"]
+        seqlen = batch[f"{prefix}seqlen"]
+        valid = batch.get(f"{prefix}valid", batch.get("valid"))
+        if valid is None:
+            valid = torch.ones(seq.shape[0], dtype=torch.bool, device=seq.device)
+        global_mask = None
+        if self.data_axis is not None:
+            global_mask = (batch[f"global_{prefix}seqlen"] > 1) & batch[f"global_{prefix}valid"]
+        model_cfg = self.config["model"]
+        cl = cl_loss(self.rec.module, seq, seqlen, valid, model_cfg, self.num_items,
+                     self.generator, views=views, axis=self.data_axis, global_mask=global_mask)
+        return float(model_cfg.get("cl_weight", 0.1)) * cl
+
+    def _update(self, batch: Dict[str, torch.Tensor], neg_id: Optional[torch.Tensor] = None,
+                views=None, aux_draws=None) -> torch.Tensor:
         """One optimizer step on a device batch, without the step count:
         what a CUDA graph of a group captures."""
         self.optimizer.zero_grad(set_to_none=True)
         with self._mesh_plans():
             with self._autocast():
-                loss = self.loss(batch, neg_id=neg_id)
+                loss = self.loss(batch, neg_id=neg_id, views=views, aux_draws=aux_draws)
             loss.backward()
         loss = self._sum_over_data(loss.detach())
         self.optimizer.step()
@@ -515,12 +542,15 @@ class Trainer:
         return flat[-1]
 
     def train_step(self, batch: Dict[str, torch.Tensor],
-                   neg_id: Optional[torch.Tensor] = None) -> torch.Tensor:
+                   neg_id: Optional[torch.Tensor] = None, views=None,
+                   aux_draws=None) -> torch.Tensor:
         """One optimizer step on a device batch; returns the loss (on device;
-        the global batch's under a mesh). ``neg_id`` gives the negatives (this
-        rank's rows of the global batch's) in place of :attr:`generator`'s;
-        the gradients stay in the parameters' ``grad`` until the next step."""
-        loss = self._update(batch, neg_id)
+        the global batch's under a mesh). ``neg_id``, ``views`` and
+        ``aux_draws`` give the negatives, the contrastive views and the aux
+        term's draws (this rank's rows of the global batch's) in place of
+        :attr:`generator`'s; the gradients stay in the parameters' ``grad``
+        until the next step."""
+        loss = self._update(batch, neg_id, views, aux_draws)
         self.step += 1
         return loss
 
@@ -592,13 +622,19 @@ class Trainer:
     def refresh_state(self, nepoch: int) -> None:
         """The model's per-epoch state (``refresh_state``: k-means
         prototypes or intents under the current weights) into
-        :attr:`batch_extras`; nothing for a model without the hook. An
+        :attr:`batch_extras`; nothing for a model without the hook. On a
+        mesh every rank fits it on the global rows, and rank 0's is then
+        broadcast, so that the state is bitwise one value on every rank. An
         entry of the same shape is copied in place (captured steps read it
         by address); any other drops the captured graphs."""
         refresh = getattr(self.model_class, "refresh_state", None)
         if refresh is None:
             return
-        for key, value in refresh(self, nepoch).items():
+        with self._mesh_plans():
+            state = refresh(self, nepoch)
+        for value in state.values():
+            broadcast_(value, self.plan.world)
+        for key, value in state.items():
             old = self.batch_extras.get(key)
             if (old is not None and old.shape == value.shape and old.dtype == value.dtype
                     and old.device == value.device):

@@ -22,7 +22,7 @@ against one port process.
 * Process 0 alone writes the best checkpoint; its table is gathered and
   padded (62 rows), and it loads back into one process; the resumable
   state (table and Adam moments gathered) restores every rank's shard.
-* Each refusal at world size > 1, with its reason.
+* Each refusal that is left at world size > 1, with its reason.
 """
 
 import copy
@@ -163,13 +163,18 @@ def test_unequal_valid_rows_take_the_global_count(tmp_path, setup, jax_single):
 
 def test_collectives_backward_rules(tmp_path):
     outs = w.run_ranks(w.collectives, 2, tmp_path)
-    for rank, (s, x_grad, full, g_grad, part, r_grad) in enumerate(outs):
+    for rank, (s, x_grad, full, g_grad, part, r_grad, rows, rows_grad) in enumerate(outs):
         np.testing.assert_array_equal(s, np.full((2, 3), 3.0))  # 1 + 2
         np.testing.assert_array_equal(x_grad, np.full((2, 3), 2.0))  # identity, not 2 x 2
         np.testing.assert_array_equal(full, [[0, 1, 2, 3, 10, 11, 12, 13]])
         np.testing.assert_array_equal(g_grad, [np.arange(4.0) + 4 * rank])  # own chunk
         np.testing.assert_array_equal(part, [np.arange(4.0) + 4 * rank])
         np.testing.assert_array_equal(r_grad, [[1, 1, 1, 1, 2, 2, 2, 2]])  # gathered
+        # gather_rows: the same forward; backward the sum over the ranks of
+        # their cotangents (rank r's is (r + 1) · arange, so 1 + 2 = 3 times
+        # it), then this rank's rows, not (r + 1) times them as gather_seq's
+        np.testing.assert_array_equal(rows, [[0, 1, 2, 3], [10, 11, 12, 13]])
+        np.testing.assert_array_equal(rows_grad, [3 * (np.arange(4.0) + 4 * rank)])
 
 
 @pytest.mark.parametrize("s", [2, 4])
@@ -249,14 +254,7 @@ class _FakeMesh:
 
 @pytest.mark.parametrize("model,train,data,shard,match", [
     ("SASRec", {"steps_per_dispatch": 4}, 2, False, "CUDA graph"),
-    ("CL4SRec", {}, 2, False, "all-gather of the views"),
-    ("CL4SRec2", {}, 2, False, "all-gather of the views"),
-    ("ICLRec", {}, 2, False, "all-gather of the views"),
-    ("SGL", {}, 2, False, "all-gather of the views"),
-    ("SimGCL", {}, 1, True, "all-gather of the views"),
-    ("NCL", {}, 2, False, "all-gather of the views"),
-    ("GNN", {}, 1, True, "whole table"),
-], ids=["fused", "cl4srec", "cl4srec2", "iclrec", "sgl", "simgcl", "ncl", "gnn_ep"])
+], ids=["fused"])
 def test_refusals_at_world_size_above_one(setup, model, train, data, shard, match):
     root, cfg = setup
     cfg = copy.deepcopy(cfg)
@@ -268,10 +266,24 @@ def test_refusals_at_world_size_above_one(setup, model, train, data, shard, matc
                      mesh_plan=plan)
 
 
-def test_meta_trainer_refuses_a_mesh():
-    cfg = {"model": {"model": "MetaModel", "sub_model": "SASRec"}}
-    with pytest.raises(NotImplementedError, match="Hessian-vector"):
-        make_trainer(cfg, None, device="cpu", mesh_plan=MeshPlan(mesh=_FakeMesh(2, 1)))
+@pytest.mark.parametrize("sub_model,overrides,mesh,error,match", [
+    ("SASRec", {"model": {"context_parallel": 2}}, (1, 2), ValueError, "context_parallel"),
+    ("SASRec", {"train": {"steps_per_dispatch": 4}}, (2, 1), NotImplementedError,
+     "CUDA graph"),
+    ("NCL", {}, (2, 1), NotImplementedError, "refresh_state"),
+    ("ICLRec", {}, (1, 2), NotImplementedError, "refresh_state"),
+], ids=["cp", "fused", "ncl", "iclrec"])
+def test_meta_trainer_refusals_on_a_mesh(setup, sub_model, overrides, mesh, error, match):
+    """What DR4SR+ still refuses on a mesh: context parallelism (as the JAX
+    package), CUDA graphs of collectives, and the sub-models whose per-epoch
+    state the JAX bilevel epoch never fits (it fails on them)."""
+    root, cfg = setup
+    cfg = copy.deepcopy(cfg)
+    cfg["model"].update(model="MetaModel", sub_model=sub_model)
+    cfg["_cli_overrides"] = overrides
+    with pytest.raises(error, match=match):
+        make_trainer(cfg, prepare_datasets(copy.deepcopy(cfg), root=root), device="cpu",
+                     mesh_plan=MeshPlan(mesh=_FakeMesh(*mesh)))
 
 
 def test_gnn_under_data_parallelism_is_not_refused(setup, tmp_path):

@@ -38,15 +38,20 @@ def _sources():
     yield os.path.join(REPO, "chip_smoke.py")
 
 
-# modules that must be among those imported (the multi-device layer's and
-# the tooling's too)
+# modules that must be among those imported (the multi-device layer's, the
+# tooling's, and those the models on a mesh and DR4SR+ on a mesh run)
 REQUIRED = ("dr4sr_tpu_torch.parallel.mesh", "dr4sr_tpu_torch.parallel.ep",
             "dr4sr_tpu_torch.parallel.collectives", "dr4sr_tpu_torch.parallel.launch",
             "dr4sr_tpu_torch.ops.ring_attention", "dr4sr_tpu_torch.ops.topk",
             "dr4sr_tpu_torch.utils.env", "dr4sr_tpu_torch.utils.logger",
             "dr4sr_tpu_torch.utils.parsing", "dr4sr_tpu_torch.utils.tbwriter",
             "dr4sr_tpu_torch.quickstart", "dr4sr_tpu_torch.tune",
-            "dr4sr_tpu_torch.scripts.preprocess")
+            "dr4sr_tpu_torch.scripts.preprocess", "dr4sr_tpu_torch.modules.losses",
+            "dr4sr_tpu_torch.modules.augmentation", "dr4sr_tpu_torch.modules.graph_augmentation",
+            "dr4sr_tpu_torch.models.cl4srec", "dr4sr_tpu_torch.models.iclrec",
+            "dr4sr_tpu_torch.models.graph_cl", "dr4sr_tpu_torch.models.gnn",
+            "dr4sr_tpu_torch.train.trainer", "dr4sr_tpu_torch.train.meta_trainer",
+            "dr4sr_tpu_torch.meta.hypergrad")
 
 
 def test_importing_the_port_loads_no_jax():

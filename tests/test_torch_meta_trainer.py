@@ -30,6 +30,13 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch_meta_parity import (
+    CONFIG_DIR,
+    assert_close_to_largest,
+    jax_meta_as_port,
+    t,
+    weighted_draws,
+)
 from torch_one_thread import one_torch_thread  # noqa: F401  (autouse)
 from torch_zoo_parity import assert_grads_match
 
@@ -38,7 +45,6 @@ from dr4sr_tpu.data.synthetic import synthetic_config as jax_synthetic_config
 from dr4sr_tpu.data.synthetic import write_synthetic_dataset as jax_write
 from dr4sr_tpu.meta.hypergrad import hypergradient as jax_hypergradient
 from dr4sr_tpu.models.base import sample_negatives as jax_sample_negatives
-from dr4sr_tpu.modules import augmentation as jax_aug
 from dr4sr_tpu.ops.attention import reference_attention
 from dr4sr_tpu.train.meta_trainer import MetaTrainer as JaxMetaTrainer
 from dr4sr_tpu_torch import quickstart, run
@@ -48,8 +54,6 @@ from dr4sr_tpu_torch.ops import attention
 from dr4sr_tpu_torch.train.meta_trainer import MetaTrainer
 from dr4sr_tpu_torch.train.trainer import Trainer
 
-REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-CONFIG_DIR = os.path.join(REPO, "configs")
 NUM_ITEMS, L, BATCH = 40, 10, 8
 ATOL = 1e-5
 HYPER_RTOL = 1e-5
@@ -92,31 +96,6 @@ def _pair(cfg, root):
     return jax_tr, tr
 
 
-def _t(x):
-    return torch.tensor(np.asarray(x))
-
-
-def _logits_shape(batch):
-    """The meta MLP's output: [B, L, 2] for a per-position query, else [B, 2]."""
-    return batch["item_id"].shape + (2,)
-
-
-def _weighted_draws(jax_tr, jbatch, key):
-    """The port's (neg_id, views, noise) for JAX's ``_weighted_loss(..., key)``."""
-    rng_loss, rng_gumbel = jax.random.split(key)
-    views = None
-    if jax_tr.contrastive:
-        rng_loss, rng_cl = jax.random.split(rng_loss)
-        m = jax_tr.config["model"]
-        r_i, r_j, _, _ = jax.random.split(rng_cl, 4)
-        views = [tuple(_t(a).long() for a in jax_aug.augment(
-            r, jbatch["in_item_id"], jbatch["seqlen"], m["augment_type"], tao=m["tau"],
-            gamma=m["gamma"], beta=m["beta"], mask_id=NUM_ITEMS)) for r in (r_i, r_j)]
-    r_neg, _ = jax.random.split(rng_loss)
-    neg = jax_sample_negatives(r_neg, jbatch, NUM_ITEMS, L)
-    return _t(neg).long(), views, _t(jax.random.gumbel(rng_gumbel, _logits_shape(jbatch)))
-
-
 def _last_batch_with_patterns(trainer):
     """The padded last batch of epoch 1, its first two rows made pattern rows."""
     batch = list(trainer.train_data.get_loader(seed=1))[-1]
@@ -135,7 +114,7 @@ def test_weighted_loss_and_gradients_match_jax(root, sub_model, scale):
     key = jax.random.PRNGKey(5)
     want, want_grads = jax.value_and_grad(
         lambda p: jax_tr._weighted_loss(p, jax_tr.meta_params, jbatch, key))(jax_tr.state.params)
-    neg, views, noise = _weighted_draws(jax_tr, jbatch, key)
+    neg, views, noise = weighted_draws(jax_tr, jbatch, key)
     meta = {k: v.detach() for k, v in tr.meta_params.items()}
     got = tr._weighted_loss(tr.device_batch(batch, is_train=True), meta, neg_id=neg,
                             views=views, noise=noise)
@@ -156,17 +135,6 @@ def test_pattern_rows_reproduce_the_unweighted_summed_loss(root):
     torch.testing.assert_close(w_loss, ref.sum(), rtol=1e-5, atol=0)
 
 
-def _jax_meta_as_port(tree, module):
-    state, tau = meta_params_from_jax(jax.tree_util.tree_map(np.asarray, tree), module)
-    return {**state, "tau": torch.tensor(tau)}
-
-
-def _assert_close_to_largest(got, want, rtol, what):
-    for k, w in want.items():
-        err = (got[k].detach() - w).abs().max().item()
-        assert err <= rtol * max(w.abs().max().item(), 1e-30), f"{what} {k}: {err}"
-
-
 @pytest.mark.parametrize("sub_model,optimizer", [("SASRec", "sgd"), ("SASRec", "adam"),
                                                  ("GRU4Rec", "sgd"), ("FMLP", "sgd")])
 def test_outer_step_matches_jax(root, sub_model, optimizer):
@@ -184,17 +152,17 @@ def test_outer_step_matches_jax(root, sub_model, optimizer):
             lambda p, m: jax_tr._weighted_loss(p, m, jtrain, r_train),
             lambda p: jax_tr.rec.training_loss({"params": p}, jval, r_val),
             jax_tr.state.params, jax_tr.meta_params, lr=jax_tr.hpo_lr, truncate_iter=3)
-    want_h = _jax_meta_as_port(want_h, tr.meta_module)
+    want_h = jax_meta_as_port(want_h, tr.meta_module)
     want_meta, _ = jax_tr.outer_step(jax_tr.state.params, jax_tr.meta_params,
                                      jax_tr.meta_opt_state, jval, jtrain, key)
-    want_meta = _jax_meta_as_port(want_meta, tr.meta_module)
+    want_meta = jax_meta_as_port(want_meta, tr.meta_module)
 
-    neg, _, noise = _weighted_draws(jax_tr, jtrain, r_train)
+    neg, _, noise = weighted_draws(jax_tr, jtrain, r_train)
     val_neg = jax_sample_negatives(jax.random.split(r_val)[0], jval, NUM_ITEMS, L)
     before = {k: v.detach().clone() for k, v in tr.meta_params.items()}
     got_h = tr.outer_step(tr.device_batch(vb, is_train=True), tr.device_batch(tb, is_train=True),
-                          val_neg=_t(val_neg).long(), train_neg=neg, noise=noise)
-    _assert_close_to_largest(got_h, want_h, HYPER_RTOL, "hypergradient")
+                          val_neg=t(val_neg).long(), train_neg=neg, noise=noise)
+    assert_close_to_largest(got_h, want_h, HYPER_RTOL, "hypergradient")
     for k, w in want_meta.items():
         np.testing.assert_allclose(tr.meta_params[k].detach().numpy(), w.numpy(), atol=META_ATOL,
                                    rtol=0, err_msg=k)
@@ -330,7 +298,9 @@ def test_cli_overrides_reach_the_sub_model_config(root):
     # a CL4SRec sub-model's item_random views pick on the host: not capturable
     ({"train": {"steps_per_dispatch": 4}, "model": {"sub_model": "CL4SRec"}},
      NotImplementedError, "steps_per_dispatch"),
-    ({"model": {"sub_model": "SGL"}}, NotImplementedError, "aux_loss"),
+    # its aux_loss reads refresh_state's prototypes, which the bilevel epoch
+    # never fits (the JAX package fails there: tests/test_torch_meta_aux.py)
+    ({"model": {"sub_model": "NCL"}}, NotImplementedError, "aux_loss"),
 ])
 def test_refusals(root, override, error, match):
     cfg = _config("SASRec")

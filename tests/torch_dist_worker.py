@@ -27,13 +27,15 @@ from dr4sr_tpu_torch.parallel import launch
 TIMEOUT_S = 120
 
 
-def run_ranks(fn, world: int, tmp_path, *args):
+def run_ranks(fn, world: int, tmp_path, *args, timeout_s: float = TIMEOUT_S):
     """``fn(rank, *args)`` on ``world`` gloo ranks of the CPU, with the
-    store under ``tmp_path``; the results in rank order."""
+    store under ``tmp_path``; the results in rank order. ``timeout_s``
+    bounds every collective and the wait for the ranks' results (a spawn
+    that runs several jobs takes ``TIMEOUT_S`` for each)."""
     store = os.path.join(str(tmp_path), f"store_{fn.__name__}_{world}_{os.getpid()}")
     if os.path.exists(store):
         os.remove(store)
-    return launch.run_ranks(fn, world, store, *args, timeout_s=TIMEOUT_S)
+    return launch.run_ranks(fn, world, store, *args, timeout_s=timeout_s)
 
 
 def _plan(data, model, shard_embedding=False):
@@ -86,7 +88,12 @@ def ring_fault_last_rotation(rank, n, q, k, v, pad, causal, do):
 
 def collectives(rank):
     """Each differentiable collective's forward and backward on 2 ranks."""
-    from dr4sr_tpu_torch.parallel.collectives import all_reduce_sum, gather_seq, split_seq
+    from dr4sr_tpu_torch.parallel.collectives import (
+        all_reduce_sum,
+        gather_rows,
+        gather_seq,
+        split_seq,
+    )
 
     axis = _plan(1, 2).axis("model")
     x = torch.full((2, 3), float(rank + 1), requires_grad=True)
@@ -99,8 +106,11 @@ def collectives(rank):
     r = torch.arange(8.0).reshape(1, 8).requires_grad_(True)
     part = split_seq(r, axis, dim=1)
     part.backward(torch.full((1, 4), float(rank + 1)))
+    h = (torch.arange(4.0) + 10 * rank).reshape(1, 4).requires_grad_(True)
+    rows = gather_rows(h, axis, dim=0)
+    rows.backward((rank + 1) * torch.arange(8.0).reshape(2, 4))
     return (s.detach().numpy(), x.grad.numpy(), full.detach().numpy(), g.grad.numpy(),
-            part.detach().numpy(), r.grad.numpy())
+            part.detach().numpy(), r.grad.numpy(), rows.detach().numpy(), h.grad.numpy())
 
 
 # ------------------------------------------------------------------ training
@@ -144,6 +154,178 @@ def train_steps(rank, cfg, root, data, model, shard_embedding, batches, negs, pa
     full = {k: v.numpy().copy() for k, v in tr.full_state_dict().items()}
     local = {k: v.detach().numpy().copy() for k, v in tr.rec.module.state_dict().items()}
     return losses, full, counters, metrics, tr.rec.module.item_embedding.weight.shape[0], local
+
+
+def _as_port(views):
+    """JAX's views as the port takes them: (seq, seqlen) pairs of int64 tensors."""
+    return views and [tuple(torch.from_numpy(np.array(v)).long() for v in pair)
+                      for pair in views]
+
+
+def _rank_rows(x, axis):
+    """This rank's rows of a global draw: the views' (seq, seqlen) pairs and
+    the augmentation draws' ``start``/``u`` are cut along the batch; a bare
+    tensor (a draw over the graph's edges or the catalog) is every rank's."""
+    if axis is None or x is None or torch.is_tensor(x):
+        return x
+    if isinstance(x, dict):
+        return {k: axis.chunk(v, 0) if torch.is_tensor(v) else v for k, v in x.items()}
+    if isinstance(x, tuple):
+        return tuple(axis.chunk(v, 0) for v in x)
+    return [_rank_rows(v, axis) for v in x]
+
+
+def zoo_steps(rank, cfg, root, data, model, shard_embedding, ref, steps=3):
+    """``steps`` Adam steps of a ``Trainer`` over a data × model mesh on
+    ``ref``'s global host batch and draws (``torch_dist_parity.jax_steps``),
+    from its initial weights and with its per-epoch state. A model with
+    ``refresh_state`` first refreshes its own state of epoch 0 (returned as
+    ``refreshed``; ``ref``'s is then put in its place). Returns a dict:
+    losses, full and local params, each step's collectives, the table's
+    rows on this rank."""
+    from dr4sr_tpu_torch.parallel.collectives import COUNTER
+
+    plan = _plan(data, model, shard_embedding) if data * model > 1 else None
+    tr = _trainer(cfg, root, plan, ref["init"])
+    refreshed = None
+    if ref["extras"]:
+        tr.refresh_state(0)
+        refreshed = {k: tr.batch_extras[k].numpy().copy() for k in ref["extras"]}
+        tr.batch_extras.update({k: torch.from_numpy(np.array(v)).to(tr.batch_extras[k].dtype)
+                                for k, v in ref["extras"].items()})
+    axis = tr.data_axis
+    neg = torch.from_numpy(np.array(ref["neg"]))
+    neg = neg if axis is None else axis.chunk(neg, 0)
+    views = _rank_rows(_as_port(ref["views"]), axis)
+    aux = _rank_rows(ref["aux"], axis)
+    dbatch = tr.device_batch(ref["batch"], is_train=True)
+    losses, counters = [], []
+    for _ in range(steps):
+        COUNTER.reset()
+        losses.append(float(tr.train_step(dbatch, neg_id=neg, views=views, aux_draws=aux)))
+        counters.append(COUNTER.snapshot())
+    return {"losses": losses, "counters": counters, "refreshed": refreshed,
+            "full": {k: v.numpy().copy() for k, v in tr.full_state_dict().items()},
+            "local": {k: v.detach().numpy().copy() for k, v in tr.rec.module.state_dict().items()},
+            "rows": tr.rec.module.item_embedding.weight.shape[0]}
+
+
+def _views_gather_seq():
+    """Fault: the InfoNCE's views gathered with ``gather_seq``'s backward
+    (the rank's own chunk of the cotangent) in place of ``gather_rows``'."""
+    from dr4sr_tpu_torch.modules import losses
+    from dr4sr_tpu_torch.parallel.collectives import gather_seq
+
+    real = losses.gather_rows
+    losses.gather_rows = lambda x, axis, dim=0: gather_seq(x, axis, dim)
+    return lambda: setattr(losses, "gather_rows", real)
+
+
+FAULTS = {"gather_seq": _views_gather_seq}
+
+
+def zoo_runs(rank, jobs):
+    """:func:`zoo_steps` for each of ``jobs``, ``(fault, arguments after the
+    rank)`` with ``fault`` None or a key of :data:`FAULTS`, in one spawn of
+    the ranks."""
+    out = []
+    for fault, args in jobs:
+        undo = FAULTS[fault]() if fault else (lambda: None)
+        try:
+            out.append(zoo_steps(rank, *args))
+        finally:
+            undo()
+    return out
+
+
+# ------------------------------------------------------------------- DR4SR+
+
+CONFIG_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                          "configs")
+
+
+def _hvps_unreduced():
+    """Fault: the outer step's Hessian-vector products left out of the
+    all-reduce over ``data`` (``hypergradient`` sums 2 + 3 trees an outer
+    step, in the order ∂L_val/∂W, the 3 products, ∂(g·p)/∂φ)."""
+    from dr4sr_tpu_torch.meta import hypergrad
+
+    real, calls = hypergrad._sum_over, []
+
+    def skip_products(grads, axis):
+        calls.append(None)
+        return grads if len(calls) % 5 in (2, 3, 4) else real(grads, axis)
+
+    hypergrad._sum_over = skip_products
+    return lambda: setattr(hypergrad, "_sum_over", real)
+
+
+def _identity_double_backward():
+    """Fault: ``all_reduce_sum``'s backward a plain identity, whose own
+    derivative is the identity too, not the sum over the axis."""
+    from dr4sr_tpu_torch.parallel import collectives
+
+    real = collectives._AllReduceSum.backward
+    collectives._AllReduceSum.backward = staticmethod(lambda ctx, grad: (grad, None))
+    return lambda: setattr(collectives._AllReduceSum, "backward", real)
+
+
+META_FAULTS = {"hvps_unreduced": _hvps_unreduced,
+               "identity_double_backward": _identity_double_backward}
+
+
+def meta_steps(rank, cfg, root, data, model, shard_embedding, ref, fault=None):
+    """A ``MetaTrainer`` over a data × model mesh from ``ref``'s sub-model
+    and meta weights: a weighted step on ``ref["tb"]``, an outer step on
+    ``ref["vb"]`` and ``ref["ob"]``, a second weighted step, each with
+    ``ref``'s global draws cut to this rank's rows. Returns each step's loss,
+    collectives and the weights after it, and the hypergradient."""
+    from dr4sr_tpu_torch.data.dataset import prepare_datasets
+    from dr4sr_tpu_torch.parallel.collectives import COUNTER
+    from dr4sr_tpu_torch.train.meta_trainer import MetaTrainer
+
+    undo = META_FAULTS[fault]() if fault else (lambda: None)
+    try:
+        plan = _plan(data, model, shard_embedding) if data * model > 1 else None
+        tr = MetaTrainer(copy.deepcopy(cfg), prepare_datasets(copy.deepcopy(cfg), root=root),
+                         device="cpu", config_dir=CONFIG_DIR, mesh_plan=plan)
+        tr.init_state(seed=0)
+        tr.set_params({k: torch.from_numpy(np.asarray(v)) for k, v in ref["init"].items()})
+        mlp, tau = ref["meta_init"]
+        tr.load_meta({k: torch.from_numpy(np.asarray(v)) for k, v in mlp.items()}, tau)
+
+        def rows(x):
+            x = torch.from_numpy(np.array(x))
+            return x if tr.data_axis is None else tr.data_axis.chunk(x, 0)
+
+        def state():
+            return ({k: v.numpy().copy() for k, v in tr.full_state_dict().items()},
+                    {k: v.detach().numpy().copy() for k, v in tr.meta_params.items()})
+
+        out = {}
+        tb = tr.device_batch(ref["tb"], is_train=True)
+        for step, draws in (("w1", ref["w1"]), ("outer", ref["outer"]), ("w2", ref["w2"])):
+            COUNTER.reset()
+            if step == "outer":
+                val_neg, train_neg, noise = (rows(x) for x in draws)
+                h = tr.outer_step(tr.device_batch(ref["vb"], is_train=True),
+                                  tr.device_batch(ref["ob"], is_train=True), val_neg=val_neg,
+                                  train_neg=train_neg, noise=noise)
+                out["hypergrad"] = {k: v.detach().numpy().copy() for k, v in h.items()}
+            else:
+                neg, noise = (rows(x) for x in draws)
+                out[f"{step}_loss"] = float(tr.weighted_train_step(tb, neg_id=neg, noise=noise))
+            out[f"{step}_collectives"] = COUNTER.snapshot()
+            out[f"{step}_params"], out[f"{step}_meta"] = state()
+        out["local"] = {k: v.detach().numpy().copy() for k, v in tr.rec.module.state_dict().items()}
+        return out
+    finally:
+        undo()
+
+
+def meta_runs(rank, jobs):
+    """:func:`meta_steps` for each of ``jobs`` (its arguments after the rank)."""
+    return [meta_steps(rank, *job) for job in jobs]
 
 
 def train_epochs(rank, cfg, root, data, model, shard_embedding, epochs):

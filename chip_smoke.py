@@ -82,18 +82,23 @@ Phases, in order; any failure raises and the script exits nonzero:
    of 16 steps one replay of a CUDA graph that holds both attention
    kernels: a group through the graph against the same steps eagerly
    (twice, from one state: parameters, Adam's moments, losses and both
-   generators' states) for SASRec, DR4SR+'s weighted steps around SASRec,
-   FMLP, bf16 SASRec and the rest of the zoo (CL4SRec and ICLRec with a
-   fixed ``augment_type``; ``item_random`` is refused); ``fit()`` of SASRec
-   for 3 epochs (graphs of 16 and 12 steps) and of DR4SR+ for 2 (groups
-   cut at every ``interval`` boundary, the outer steps eager between them)
-   with phase 5's and phase 9's launch counts; one profiled replay (32
-   forward and 32 backward kernels, one ``cudaGraphLaunch``); groups and
-   DR4SR+ intervals timed through the graphs and eagerly;
+   generators' states, launches and collectives) for SASRec, DR4SR+'s
+   weighted steps around SASRec, FMLP, bf16 SASRec and the rest of the zoo
+   (CL4SRec, CL4SRec2 and ICLRec under the shipped ``item_random``, its
+   pick on the device); ``fit()`` of SASRec for 3 epochs (graphs of 16 and
+   12 steps) and of DR4SR+ for 2 (groups cut at every ``interval``
+   boundary, the outer steps eager between them) with phase 5's and phase
+   9's launch counts; one profiled replay (32 forward and 32 backward
+   kernels, one ``cudaGraphLaunch``); groups and DR4SR+ intervals timed
+   through the graphs and eagerly; CL4SRec's picks over 48 replays of a
+   group of 4 read back against the same steps' eager picks (every branch
+   taken); SASRec with ``model.remat`` at dropout 0.5: the graph against
+   eager with remat, and eager without remat against eager with it;
 11. dist: on the same data, SASRec at the amazon-toys width (dropout 0)
    over ``torch.distributed``: NCCL at world size 1 (a ``Trainer`` over a
    1 × 1 mesh with ``shard_embedding``, 3 steps and a validation pass,
-   bitwise equal to a plain one); then ranks spawned on the one card over
+   bitwise equal to a plain one, and an epoch of each at N = 16 through
+   graphs, bitwise); then ranks spawned on the one card over
    gloo (NCCL takes no two ranks of a communicator on one card; gloo sends
    are staged through pinned host memory): DP 2 × 1, EP 1 × 2 (table
    11,925 → 11,926 rows), CP 1 × 2 (L 50 → 25 a rank) and one step of 2 × 2
@@ -111,7 +116,9 @@ Phases, in order; any failure raises and the script exits nonzero:
    with a fully padded row; the artifact's decode of 4,096 sequences under
    K = 5 on 2 ranks, token for token as one rank's; step times of each run
    beside one rank's (host-staged gloo on one card: not a multi-GPU
-   speed). Then the zoo and DR4SR+ on a mesh (``dist_more``): CL4SRec,
+   speed; N = 16 on the DP mesh is refused by name: gloo stages CUDA
+   tensors through the host). Then the zoo and DR4SR+ on a mesh
+   (``dist_more``): CL4SRec,
    ICLRec and SGL over DP 2 × 1, NCL and CL4SRec over 2 × 2 (DP × EP), GNN
    and SimGCL over EP 1 × 2, CL4SRec over CP 1 × 2 (2 steps each), and
    DR4SR+ around SASRec over DP 2 × 1 and EP 1 × 2 (a weighted, an outer
@@ -156,8 +163,23 @@ gather's backward summing over ``model``, the ring's backward without its
 last send, the loss's denominator left per rank, CL4SRec's views gathered
 with ``gather_seq``'s backward (each rank's own chunk of the cotangent),
 and DR4SR+'s Hessian-vector products left out of the all-reduce over
-``data``; it prints whether the check caught each (a ``control {...}``
-line per path and fault).
+``data``, and phase 10's pick and remat checks with a captured step's
+pick a host constant and with remat's recompute drawing fresh dropout
+masks; it prints whether the check caught each (a ``control {...}`` line
+per path and fault).
+
+    python3 chip_smoke.py --nccl              # on NCCL_CARDS (4) cards
+
+runs phase 11 over NCCL, rank r on card r (it raises when fewer cards are
+visible), then the fused runs on a mesh (``dist_fused``): SASRec at N = 16
+over DP 2 × 1, EP 1 × 2, CP 1 × 2 and 2 × 2, CL4SRec over DP 2 × 1 under
+``item_random`` and DR4SR+'s weighted groups over DP 2 × 1, each rank's
+group of 16 through its CUDA graph, the collectives inside it, against the
+same steps eagerly (phase 10's rule), replicas bitwise, attention launches
+and collectives of the group by kind and axis as predicted, and groups
+timed against an N = 1 trainer on the same mesh; it ends with the same
+``{"ok": true, ...}`` line. ``--nccl --controls`` checks that a replay
+that does not count its collectives is caught.
 """
 
 from __future__ import annotations
@@ -1871,12 +1893,14 @@ FUSED_RTOL = {torch.float32: 1e-5, torch.bfloat16: PATH_RTOL[torch.bfloat16]}
 FUSED_SPREADS = 2
 FUSED_TIMED_GROUPS = 12
 # the other models of the zoo, with their phase-7 and phase-8 configs; the
-# contrastive ones with a fixed augment_type (item_random picks each view's
-# augmentation on the host, and is refused)
+# contrastive ones with the shipped configs' augment_type, item_random (one
+# kind a batch, picked on the device)
 FUSED_OTHERS = ("GRU4Rec", "CL4SRec", "CL4SRec2", "GNN", "SGL", "SimGCL", "NCL", "ICLRec")
-FUSED_AUGMENT = "item_crop"
-# configurations refused at N > 1: item_random views pick on the host
-FUSED_REFUSED = ("CL4SRec", "ICLRec")
+FUSED_AUGMENT = "item_random"
+# the pick's check: CL4SRec's group of FUSED_PICK_N steps replayed
+# FUSED_PICK_REPLAYS times (2 picks a step), each replay's picks read back
+FUSED_PICK_N = 4
+FUSED_PICK_REPLAYS = 48
 
 
 def _fused_cfg(workdir, model, **train):
@@ -1921,42 +1945,15 @@ def _rel_err(got, want):
     return (got - want).abs().max().item() / max(want.abs().max().item(), 1e-30)
 
 
-def fused_vs_eager(trainer, kind="train"):
-    """From one state, a group of FUSED_N steps through the CUDA graph
-    against the same steps eagerly, twice. The trainer first takes one
-    group through ``fused_steps`` (its eager warm-up, counted as the steps
-    it is) and, for a model with per-epoch state, refreshes it. Returns the
-    comparison: tensors equal to the bit, the others' errors beside the
-    eager spread, the generators' states, launches and capture ms."""
-    update = trainer._update if kind == "train" else trainer._weighted_update
-    step = trainer.train_step if kind == "train" else trainer.weighted_train_step
-    trainer.refresh_state(0)
-    batches = [b for b, _ in zip(trainer.train_batches(0), range(2 * FUSED_N))]
-    trainer.fused_steps(batches[:FUSED_N], kind, update)
-    group = batches[FUSED_N:]
-    start = _state_of(trainer)
-    runs, launches = {}, {}
-    for name in ("graph", "eager", "eager_again"):
-        _restore(trainer, start)
-        before = (flash_attention_fwd.launches, flash_attention_bwd.launches)
-        if name == "graph":
-            losses = trainer.fused_steps(group, kind, update).clone()
-        else:
-            losses = torch.stack([step(trainer.device_batch(b, is_train=True)) for b in group])
-        torch.cuda.synchronize()
-        launches[name] = (flash_attention_fwd.launches - before[0],
-                          flash_attention_bwd.launches - before[1])
-        state = _state_of(trainer)
-        runs[name] = {"losses": losses, **{f"param {k}": v for k, v in state["params"].items()},
-                      **{f"adam {k}": v for k, v in state["optimizer"].items()}}
-        runs[name]["generators"] = (state["generator"], state["cuda_rng"])
-        runs[name]["step"] = state["step"]
-    dtype = trainer.compute_dtype or torch.float32
+def _versus(runs, name, dtype):
+    """Run ``name`` against the runs ``eager`` and ``eager_again`` (the same
+    steps from the same state): tensors equal to the bit, the others'
+    errors beside the eager spread, those over the bound, the generators."""
     keys = [k for k in runs["eager"] if k not in ("generators", "step")]
     deterministic = all(torch.equal(runs["eager"][k], runs["eager_again"][k]) for k in keys)
     bitwise, other, over = [], {}, []
     for key in keys:
-        got, eager, again = runs["graph"][key], runs["eager"][key], runs["eager_again"][key]
+        got, eager, again = runs[name][key], runs["eager"][key], runs["eager_again"][key]
         if torch.equal(got, eager):
             bitwise.append(key)
         elif deterministic:
@@ -1967,25 +1964,77 @@ def fused_vs_eager(trainer, kind="train"):
             if other[key]["err"] > max(FUSED_RTOL[dtype],
                                        FUSED_SPREADS * other[key]["eager_spread"]):
                 over.append(key)
-    gens = [all(torch.equal(a, b) for a, b in zip(runs["graph"]["generators"],
-                                                  runs[name]["generators"]))
-            for name in ("eager", "eager_again")]
+    gens = [all(torch.equal(a, b) for a, b in zip(runs[name]["generators"], runs[e]["generators"]))
+            for e in ("eager", "eager_again")]
+    return {"eager_deterministic": deterministic, "tensors": len(keys),
+            "bitwise": len(bitwise), "not_bitwise": other, "over_bound": over,
+            "generators_equal": all(gens),
+            "loss_max_abs_err": (runs[name]["losses"] - runs["eager"]["losses"]).abs()
+            .max().item()}
+
+
+def fused_vs_eager(trainer, kind="train", without_remat=False):
+    """From one state, a group of FUSED_N steps eagerly, twice, and through
+    the CUDA graph (last, so that the trainer ends in the graph's state).
+    The trainer first takes one group through ``fused_steps`` (its eager
+    warm-up, counted as the steps it is) and, for a model with per-epoch
+    state, refreshes it. Returns the comparison (:func:`_versus`), the
+    launches and collectives of each run and the capture ms;
+    ``without_remat`` adds the same steps eagerly with the encoder's
+    ``remat`` off (``without_remat``: that run against the eager ones)."""
+    from dr4sr_tpu_torch.parallel.collectives import COUNTER
+
+    update = trainer._update if kind == "train" else trainer._weighted_update
+    step = trainer.train_step if kind == "train" else trainer.weighted_train_step
+    trainer.refresh_state(0)
+    batches = [b for b, _ in zip(trainer.train_batches(0), range(2 * FUSED_N))]
+    trainer.fused_steps(batches[:FUSED_N], kind, update)
+    group = batches[FUSED_N:]
+    start = _state_of(trainer)
+    runs, launches, collectives = {}, {}, {}
+    names = ("eager", "eager_again", *(("eager_without_remat",) if without_remat else ()),
+             "graph")
+    encoder = trainer.rec.module.encoder if without_remat else None
+    for name in names:
+        _restore(trainer, start)
+        before = (flash_attention_fwd.launches, flash_attention_bwd.launches)
+        COUNTER.reset()
+        if encoder is not None:
+            encoder.remat = name != "eager_without_remat"
+        if name == "graph":
+            losses = trainer.fused_steps(group, kind, update).clone()
+        else:
+            losses = torch.stack([step(trainer.device_batch(b, is_train=True)) for b in group])
+        torch.cuda.synchronize(trainer.device)
+        launches[name] = (flash_attention_fwd.launches - before[0],
+                          flash_attention_bwd.launches - before[1])
+        collectives[name] = COUNTER.snapshot()
+        state = _state_of(trainer)
+        runs[name] = {"losses": losses, **{f"param {k}": v for k, v in state["params"].items()},
+                      **{f"adam {k}": v for k, v in state["optimizer"].items()}}
+        runs[name]["generators"] = (state["generator"], state["cuda_rng"])
+        runs[name]["step"] = state["step"]
+    dtype = trainer.compute_dtype or torch.float32
     graphs = trainer._graphs.graphs
-    result = {"kind": kind, "steps": FUSED_N, "eager_deterministic": deterministic,
-              "tensors": len(keys), "bitwise": len(bitwise),
-              "not_bitwise": other, "over_bound": over, "rtol": FUSED_RTOL[dtype],
-              "losses_graph": runs["graph"]["losses"].tolist(),
-              "loss_max_abs_err": (runs["graph"]["losses"] - runs["eager"]["losses"]).abs()
-              .max().item(),
-              "generators_equal": all(gens), "step": [runs[n]["step"] for n in runs],
+    result = {"kind": kind, "steps": FUSED_N, **_versus(runs, "graph", dtype),
+              "rtol": FUSED_RTOL[dtype], "losses_graph": runs["graph"]["losses"].tolist(),
+              "step": [runs[n]["step"] for n in runs],
               "launches": {k: list(v) for k, v in launches.items()},
+              "collectives": collectives,
               "capture_ms": {f"{k}_{n}": g.capture_ms for (k, n), g in graphs.items()}}
+    if without_remat:
+        result["without_remat"] = _versus(runs, "eager_without_remat", dtype)
     return result
 
 
 def check_fused_vs_eager(model, result):
-    if result["over_bound"] or not result["generators_equal"] or len(
-            set(map(tuple, result["launches"].values()))) != 1 or len(set(result["step"])) != 1:
+    same = ("eager", "eager_again", "graph")
+    plain = result.get("without_remat")
+    if (result["over_bound"] or not result["generators_equal"]
+            or len({tuple(result["launches"][n]) for n in same}) != 1
+            or len({json.dumps(result["collectives"][n], sort_keys=True) for n in same}) != 1
+            or len(set(result["step"])) != 1
+            or (plain is not None and (plain["over_bound"] or not plain["generators_equal"]))):
         raise AssertionError(f"{model}: the graph's group against eager: {result}")
 
 
@@ -2217,40 +2266,121 @@ def fused_model(model, workdir, result, **train):
     return flash_attention_fwd.launches, flash_attention_bwd.launches
 
 
+def _recorded_picks():
+    """``augmentation.sample_draws`` wrapped to keep, in order, the pick
+    tensor of every ``item_random`` draw it makes: (the list, undo)."""
+    from dr4sr_tpu_torch.modules import augmentation
+
+    real, picks = augmentation.sample_draws, []
+
+    def recorded(*args, **kwargs):
+        draws = real(*args, **kwargs)
+        if draws["kind"] == "item_random":
+            picks.append(draws["pick"])
+        return draws
+
+    augmentation.sample_draws = recorded
+    return picks, lambda: setattr(augmentation, "sample_draws", real)
+
+
+def fused_picks(workdir, result):
+    """CL4SRec under ``item_random`` at N = FUSED_PICK_N: after the eager
+    warm-up group, FUSED_PICK_REPLAYS groups through one graph, each
+    replay's picks read back from the pick tensors the capture made (a
+    graph rewrites them at every replay), against the picks of the same
+    steps run eagerly from the same state; every branch must be taken.
+    A pick frozen into the graph at capture repeats itself replay after
+    replay."""
+    n = FUSED_PICK_N
+    cfg = _fused_cfg(workdir, "CL4SRec", steps_per_dispatch=n)
+    trainer = Trainer(cfg, prepare_datasets(cfg, root=workdir), workdir=workdir, device="cuda")
+    trainer.init_state()
+    batches = list(itertools.islice(itertools.chain.from_iterable(
+        trainer.train_batches(e) for e in itertools.count()), n * (FUSED_PICK_REPLAYS + 1)))
+    picks, undo = _recorded_picks()
+    try:
+        flash_attention_fwd.launches = flash_attention_bwd.launches = 0
+        trainer.fused_steps(batches[:n], "train", trainer._update)
+        start = _state_of(trainer)
+        picks.clear()
+        graph = []
+        for i in range(FUSED_PICK_REPLAYS):
+            trainer.fused_steps(batches[n * (i + 1):n * (i + 2)], "train", trainer._update)
+            if i == 0:
+                captured = list(picks)  # the capture's pick tensors
+            graph += torch.cat(captured).tolist()
+        launches = (flash_attention_fwd.launches, flash_attention_bwd.launches)
+        _restore(trainer, start)
+        picks.clear()
+        for batch in batches[n:]:
+            trainer.train_step(trainer.device_batch(batch, is_train=True))
+        eager = torch.cat(picks).tolist()
+    finally:
+        undo()
+    result.update(replays=FUSED_PICK_REPLAYS, steps_a_replay=n, picks=len(graph),
+                  picks_a_replay=len(captured), taken={k: graph.count(k) for k in range(3)},
+                  equal_to_eager=graph == eager, graphs=sorted(map(list, trainer._graphs.graphs)),
+                  launches=list(launches))
+    if graph != eager or set(graph) != {0, 1, 2} or len(captured) != 2 * n:
+        raise AssertionError(f"fused CL4SRec picks: {result}; graph {graph[:64]}, "
+                             f"eager {eager[:64]}")
+    return launches
+
+
+def fused_remat(workdir, result):
+    """SASRec with ``model.remat`` at dropout 0.5 (phase 5's): a group
+    through the graph against eager with remat, and eager without remat
+    against eager with it, from the same state and draws."""
+    cfg = _fused_cfg(workdir, "SASRec")
+    cfg["model"]["remat"] = True
+    trainer = Trainer(cfg, prepare_datasets(cfg, root=workdir), workdir=workdir, device="cuda")
+    trainer.init_state()
+    flash_attention_fwd.launches = flash_attention_bwd.launches = 0
+    result.update(dropout=cfg["model"]["dropout_rate"],
+                  **fused_vs_eager(trainer, without_remat=True))
+    check_fused_vs_eager("SASRec remat", result)
+    # per step and layer: the forward, its recompute in the backward, the backward
+    layers = cfg["model"]["layer_num"]
+    want = {"graph": [2 * layers * FUSED_N, layers * FUSED_N],
+            "eager_without_remat": [layers * FUSED_N, layers * FUSED_N]}
+    if any(result["launches"][k] != v for k, v in want.items()):
+        raise AssertionError(f"fused SASRec remat: launches {result['launches']}, want {want}")
+    return flash_attention_fwd.launches, flash_attention_bwd.launches
+
+
 def fused(card, workdir):
     """Phase 10 on phase 6's dataset: SASRec, DR4SR+ around SASRec, FMLP,
-    bf16 SASRec and the rest of the zoo at N = 16 (or refused). The
-    ``fused`` line holds what each part read, also when one of them fails."""
-    result = {"card": card, "steps_per_dispatch": FUSED_N}
+    bf16 SASRec and the rest of the zoo at N = 16 (the contrastive models
+    under ``item_random``), CL4SRec's picks over many replays, and SASRec
+    with remat. The ``fused`` line holds what each part read, also when one
+    of them fails."""
+    result = {"card": card, "steps_per_dispatch": FUSED_N, "augment_type": FUSED_AUGMENT}
+    fwd, bwd = {}, {}
     try:
         result["SASRec"] = {}
-        sasrec = fused_sasrec(workdir, card, result["SASRec"])
+        fwd["fused_sasrec"], bwd["fused_sasrec"] = fused_sasrec(workdir, card, result["SASRec"])
         result["MetaModel(SASRec)"] = {}
-        meta_launches = fused_meta(workdir, card, result["MetaModel(SASRec)"])
+        fwd["fused_meta_sasrec"], bwd["fused_meta_sasrec"] = fused_meta(
+            workdir, card, result["MetaModel(SASRec)"])
         result["FMLP"] = {}
-        fmlp = fused_model("FMLP", workdir, result["FMLP"])
-        if fmlp != (0, 0):
-            raise AssertionError(f"fused FMLP: attention launches {fmlp}")
+        fwd["fused_fmlp"], bwd["fused_fmlp"] = fused_model("FMLP", workdir, result["FMLP"])
+        if (fwd["fused_fmlp"], bwd["fused_fmlp"]) != (0, 0):
+            raise AssertionError(f"fused FMLP: attention launches {result['FMLP']}")
         result["SASRec bf16"] = {}
         fused_model("SASRec", workdir, result["SASRec bf16"], precision="bf16")
         for model in FUSED_OTHERS:
             result[model] = {}
-            fused_model(model, workdir, result[model])
-        for model in FUSED_REFUSED:
-            cfg = _fused_cfg(workdir, model)
-            cfg["model"]["augment_type"] = "item_random"
-            try:
-                Trainer(cfg, prepare_datasets(cfg, root=workdir), device="cuda")
-            except NotImplementedError as e:
-                result[f"{model} item_random"] = {"refused": str(e)}
-            else:
-                raise AssertionError(f"fused {model} with item_random views: not refused")
+            path = f"fused_{model.lower()}"
+            fwd[path], bwd[path] = fused_model(model, workdir, result[model])
+        result["CL4SRec picks"] = {}
+        fwd["fused_cl4srec_picks"], bwd["fused_cl4srec_picks"] = fused_picks(
+            workdir, result["CL4SRec picks"])
+        result["SASRec remat"] = {}
+        fwd["fused_sasrec_remat"], bwd["fused_sasrec_remat"] = fused_remat(
+            workdir, result["SASRec remat"])
     finally:
         log(f"fused {json.dumps(result)}")
-    return ({"fused_sasrec": sasrec[0], "fused_meta_sasrec": meta_launches[0],
-             "fused_fmlp": fmlp[0]},
-            {"fused_sasrec": sasrec[1], "fused_meta_sasrec": meta_launches[1],
-             "fused_fmlp": fmlp[1]})
+    return fwd, bwd
 
 
 # phase 11, multi-GPU (dist): SASRec at the amazon-toys width (phase 5's
@@ -2401,11 +2531,23 @@ def dist_train_rank(rank, workdir, run, ref, fault, device="cuda"):
     launches = (flash_attention_fwd.launches, flash_attention_bwd.launches)
     eval_collectives = COUNTER.snapshot()
     scores, ids = _first_val_topk(trainer)
+    refused = None
+    if (run == "dp" and torch.distributed.get_backend() == "gloo"
+            and torch.device(device).type == "cuda"):
+        # N > 1 over gloo on the card: its collectives stage through the host
+        cfg = _dist_cfg(workdir)
+        cfg["train"]["steps_per_dispatch"] = FUSED_N
+        try:
+            Trainer(cfg, datasets, workdir=workdir, device=device, mesh_plan=plan)
+        except NotImplementedError as e:
+            refused = str(e)
+        if refused is None or "gloo" not in refused:
+            raise AssertionError(f"dist dp: N = {FUSED_N} over gloo on the card: {refused}")
     return {"losses": losses, "grads": grads, "local": local, "metrics": metrics,
             "scores": scores, "ids": ids, "launches": launches,
             "step_collectives": step_collectives, "eval_collectives": eval_collectives,
             "timed": _timed_steps(trainer, datasets, DIST_TIMED),
-            "eval_batches": len(datasets[1].get_loader())}
+            "eval_batches": len(datasets[1].get_loader()), "n16_refused": refused}
 
 
 def _dist_launches_want(run, rank, eval_batches):
@@ -2480,6 +2622,8 @@ def check_dist_run(run, outs, ref):
     summary["eval_collectives"] = outs[0]["eval_collectives"]
     check_dist_collectives(run, outs[0]["step_collectives"][0])
     summary["timed"] = [out["timed"] for out in outs]
+    if outs[0]["n16_refused"] is not None:
+        summary["n16_refused"] = outs[0]["n16_refused"]
     return summary
 
 
@@ -2595,7 +2739,8 @@ def dist_decode_rank(rank, sequences, device="cuda"):
 def dist_nccl_world1(workdir, datasets, result, device="cuda"):
     """NCCL at world size 1: a ``Trainer`` over a 1 × 1 mesh with
     ``shard_embedding`` against a plain one, 3 steps (dropout as configured,
-    0.5) and one validation pass, bitwise; its launches."""
+    0.5) and one validation pass, bitwise; then both at N = FUSED_N for an
+    epoch (graphs of 16 and 12 steps), bitwise; the launches of each."""
     from dr4sr_tpu_torch.parallel.mesh import MeshPlan, create_mesh, init_distributed
 
     store = tempfile.mktemp(prefix="store_", dir=workdir)
@@ -2617,18 +2762,39 @@ def dist_nccl_world1(workdir, datasets, result, device="cuda"):
             runs[name] = (losses, {k: v.clone() for k, v in trainer.rec.module.state_dict()
                                    .items()}, metrics,
                           (flash_attention_fwd.launches, flash_attention_bwd.launches))
+            cfg = _train_cfg(workdir, steps_per_dispatch=FUSED_N)
+            trainer = Trainer(cfg, datasets, workdir=workdir, device=device, mesh_plan=plan)
+            trainer.init_state()
+            flash_attention_fwd.launches = flash_attention_bwd.launches = 0
+            loss = trainer.training_epoch(0)
+            _sync(device)
+            runs[f"{name}_n{FUSED_N}"] = (
+                [loss], {k: v.clone() for k, v in trainer.rec.module.state_dict().items()}, {},
+                (flash_attention_fwd.launches, flash_attention_bwd.launches),
+                sorted(n for _, n in trainer._graphs.graphs) if trainer._graphs else [])
         backend = torch.distributed.get_backend()
     finally:
         torch.distributed.destroy_process_group()
-    plain, mesh = runs["plain"], runs["mesh"]
-    bitwise = (plain[0] == mesh[0] and plain[2] == mesh[2]
-               and all(torch.equal(v, mesh[1][k]) for k, v in plain[1].items()))
-    want = _nccl_launches_want(len(datasets[1].get_loader()))
-    result["nccl_world1"] = {"backend": backend, "bitwise": bitwise, "losses": mesh[0],
-                             "launches": list(mesh[3]), "want": list(want)}
-    if not bitwise or mesh[3] != want:
-        raise AssertionError(f"dist nccl at world size 1: {result['nccl_world1']}")
-    return mesh[3]
+    out = {"backend": backend}
+    layers = TRAIN_CONFIG["model"]["layer_num"]
+    steps = len(datasets[0].get_loader())
+    for suffix, want in (("", _nccl_launches_want(len(datasets[1].get_loader()))),
+                         (f"_n{FUSED_N}", (layers * steps, layers * steps))):
+        plain, mesh = runs[f"plain{suffix}"], runs[f"mesh{suffix}"]
+        bitwise = (plain[0] == mesh[0] and plain[2] == mesh[2]
+                   and all(torch.equal(v, mesh[1][k]) for k, v in plain[1].items()))
+        out[f"steps{suffix or '_n1'}"] = {"bitwise": bitwise, "losses": mesh[0],
+                                         "launches": list(mesh[3]), "want": list(want),
+                                         "graphs": mesh[4] if len(mesh) > 4 else []}
+        if not bitwise or mesh[3] != want:
+            result["nccl_world1"] = out
+            raise AssertionError(f"dist nccl at world size 1: {out}")
+    want_graphs = sorted({FUSED_N, steps % FUSED_N} - {0, 1})
+    if runs[f"mesh_n{FUSED_N}"][4] != want_graphs:
+        raise AssertionError(f"dist nccl at world size 1: graphs {runs[f'mesh_n{FUSED_N}'][4]}, "
+                             f"want {want_graphs}")
+    result["nccl_world1"] = out
+    return runs["mesh"][3], runs[f"mesh_n{FUSED_N}"][3]
 
 
 def _nccl_launches_want(eval_batches):
@@ -2781,12 +2947,15 @@ def _dist_meta_steps(trainer, inputs, rows):
 
 def _rank_rows(x, axis):
     """This rank's rows of a reference's global draws: the views' (seq,
-    seqlen) pairs and the augmentation draws' ``start``/``u``; a bare
+    seqlen) pairs and the augmentation draws' ``start``/``u`` (of each
+    branch of an ``item_random`` draw, whose pick is every rank's); a bare
     tensor (a draw over the graph's edges or the catalog) is every rank's."""
     if axis is None or x is None or isinstance(x, torch.Tensor):
         return x
     if isinstance(x, dict):
-        return {k: axis.chunk(v, 0) if isinstance(v, torch.Tensor) else v for k, v in x.items()}
+        return {k: (_rank_rows(v, axis) if isinstance(v, list) else v if k == "pick"
+                    else axis.chunk(v, 0) if isinstance(v, torch.Tensor) else v)
+                for k, v in x.items()}
     if isinstance(x, tuple) and all(isinstance(v, torch.Tensor) for v in x):
         return tuple(axis.chunk(v, 0) for v in x)
     return type(x)(_rank_rows(v, axis) for v in x)
@@ -3071,8 +3240,9 @@ def dist(card, workdir, device="cuda"):
     fwd, bwd = {}, {}
     try:
         datasets = prepare_datasets(TRAIN_CONFIG, root=workdir)
-        fwd["dist_nccl1"], bwd["dist_nccl1"] = dist_nccl_world1(workdir, datasets, result,
-                                                                 device)
+        n1, n16 = dist_nccl_world1(workdir, datasets, result, device)
+        fwd["dist_nccl1"], bwd["dist_nccl1"] = n1
+        fwd[f"dist_nccl1_n{FUSED_N}"], bwd[f"dist_nccl1_n{FUSED_N}"] = n16
         ref = _dist_reference(workdir, datasets, device)
         result["one_rank"] = {"losses": ref["losses"], "metrics": ref["metrics"],
                               "timed": ref["timed"]}
@@ -3107,6 +3277,237 @@ def dist(card, workdir, device="cuda"):
     finally:
         log(f"dist {json.dumps(result, default=str)}")
     return fwd, bwd
+
+
+# --nccl: phase 11 over NCCL on NCCL_CARDS cards, rank r on card r, then the
+# fused runs on a mesh: train.steps_per_dispatch = FUSED_N, each rank's group
+# one replay of its own CUDA graph, the step's collectives inside it, at
+# phase 10's configs (dropout as configured; CL4SRec under item_random).
+# name: (model, data, model axis, shard_embedding, context_parallel)
+NCCL_CARDS = 4
+DIST_FUSED_RUNS = {
+    "fused_dp": ("SASRec", 2, 1, False, 1),
+    "fused_ep": ("SASRec", 1, 2, True, 1),
+    "fused_cp": ("SASRec", 1, 2, False, 2),
+    "fused_2x2": ("SASRec", 2, 2, True, 2),
+    "fused_dp_cl4srec": ("CL4SRec", 2, 1, False, 1),
+    "fused_dp_meta": ("MetaModel", 2, 1, False, 1),
+}
+
+
+def _dist_fused_trainer(workdir, model, cp, plan, spd, device):
+    if model == "MetaModel":  # DR4SR+ around SASRec, phase 9's configs
+        meta, sub = _meta_cfgs(workdir, "SASRec", steps_per_dispatch=spd)
+        trainer = MetaTrainer(meta, prepare_datasets(meta, root=workdir), workdir=workdir,
+                              device=device, sub_config=sub, mesh_plan=plan)
+    else:
+        cfg = _fused_cfg(workdir, model, steps_per_dispatch=spd)
+        if cp > 1:
+            cfg["model"]["context_parallel"] = cp
+        trainer = Trainer(cfg, prepare_datasets(cfg, root=workdir), workdir=workdir,
+                          device=device, mesh_plan=plan)
+    trainer.init_state()
+    return trainer
+
+
+def _timed_groups(trainer, eager, kind):
+    """FUSED_TIMED_GROUPS groups of FUSED_N steps, host batches to done:
+    through ``trainer``'s graph and, on ``eager`` (N = 1, the same mesh),
+    step by step, in turns; ms a step."""
+    update = trainer._update if kind == "train" else trainer._weighted_update
+    step = eager.train_step if kind == "train" else eager.weighted_train_step
+    loaders = itertools.chain.from_iterable(trainer.train_batches(e) for e in itertools.count(1))
+    step(eager.device_batch(next(loaders), is_train=True))  # the eager trainer's warm-up
+    timed = {"graph": [], "eager": []}
+    for _ in range(FUSED_TIMED_GROUPS):
+        group = list(itertools.islice(loaders, FUSED_N))
+        for name in ("graph", "eager"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if name == "graph":
+                trainer.fused_steps(group, kind, update)
+            else:
+                for batch in group:
+                    step(eager.device_batch(batch, is_train=True))
+            torch.cuda.synchronize()
+            timed[name].append((time.perf_counter() - t0) * 1e3 / FUSED_N)
+    return {f"{name}_step_ms_{q}": float(np.percentile(ms, int(q[1:])))
+            for name, ms in timed.items() for q in ("p50", "p90")}
+
+
+def dist_fused_rank(rank, workdir, runs, fault, device="cuda"):
+    """One rank of each of ``runs`` (names of DIST_FUSED_RUNS of one world
+    size): a group of FUSED_N steps through the graph against the same
+    steps eagerly, twice, from one state (:func:`fused_vs_eager`: launches
+    and collectives of each), the local weights after the graph's group,
+    and groups timed through the graph against an N = 1 trainer on the
+    same mesh. ``fault`` patches NCCL_FAULTS[fault] in."""
+    from dr4sr_tpu_torch.parallel.mesh import MeshPlan, create_mesh
+
+    undo = NCCL_FAULTS[fault]() if fault else (lambda: None)
+    out = {}
+    try:
+        for run in runs:
+            model, data, axis, shard, cp = DIST_FUSED_RUNS[run]
+            plan = MeshPlan(mesh=create_mesh(data=data, model=axis, device_type="cuda"),
+                            shard_embedding=shard)
+            trainer = _dist_fused_trainer(workdir, model, cp, plan, FUSED_N, device)
+            kind = "weighted" if model == "MetaModel" else "train"
+            result = fused_vs_eager(trainer, kind)
+            local = {k: v.detach().cpu().clone()
+                     for k, v in trainer.rec.module.state_dict().items()}
+            eager = _dist_fused_trainer(workdir, model, cp, plan, 1, device)
+            result["timed"] = _timed_groups(trainer, eager, kind)
+            out[run] = {"result": result, "local": local}
+            del trainer, eager
+            torch.cuda.empty_cache()
+    finally:
+        undo()
+    return out
+
+
+def _dist_fused_want(run, rank):
+    """A rank's attention launches (forward = backward) and collectives by
+    kind and axis in a group of FUSED_N steps: per step and layer a kernel
+    each way for each encode with a gradient (CL4SRec 3: the batch and two
+    views), times the ring's blocks under CP (model index + 1); the BCE
+    count's and the gradients' all-reduces over ``data`` (CL4SRec: and the
+    two views' gathers, each with an all-reduce in its backward), EP's 3
+    gathers over ``model``, and per layer the ring's 10 sends and 4
+    all-gathers (o, dq, dk, dv)."""
+    model, data, axis, shard, cp = DIST_FUSED_RUNS[run]
+    layers = TRAIN_CONFIG["model"]["layer_num"]
+    encodes = 3 if model == "CL4SRec" else 1
+    blocks = rank % axis + 1 if cp > 1 else 1
+    want = {}
+    if data > 1:
+        want["all_reduce:data"] = 4 if model == "CL4SRec" else 2
+        if model == "CL4SRec":
+            want["all_gather:data"] = 2
+    if shard:
+        want["all_reduce:model"] = 3
+    if cp > 1:
+        want.update({"all_gather:model": 4 * layers, "send:model": 10 * layers})
+    return ([FUSED_N * layers * encodes * blocks] * 2,
+            {k: FUSED_N * v for k, v in sorted(want.items())})
+
+
+def check_dist_fused_run(run, outs):
+    """Each rank's graph against its eager steps (phase 10's rule), the
+    launches and collectives of the graph's group as predicted (and the
+    eager group's the same), replicas bitwise across ranks."""
+    model, data, axis, shard, cp = DIST_FUSED_RUNS[run]
+    summary = {"model": model, "mesh": [data, axis], "shard_embedding": shard,
+               "context_parallel": cp, "steps": FUSED_N, "ranks": []}
+    for r, out in enumerate(outs):
+        res = out["result"]
+        launches, collectives = _dist_fused_want(run, r)
+        got = {k: v["calls"] for k, v in res["collectives"]["graph"].items()}
+        summary["ranks"].append({
+            k: res[k] for k in ("bitwise", "tensors", "not_bitwise", "over_bound",
+                                "generators_equal", "loss_max_abs_err", "launches",
+                                "capture_ms", "timed")})
+        summary["ranks"][-1].update(collectives=got, want_launches=launches,
+                                    want_collectives=collectives)
+        check_fused_vs_eager(f"dist {run} rank {r}", res)
+        if res["launches"]["graph"] != launches or got != collectives:
+            raise AssertionError(f"dist {run} rank {r}: a group's launches "
+                                 f"{res['launches']['graph']} and collectives {got}, want "
+                                 f"{launches} and {collectives}")
+    _check_replicas(run, outs, axis, shard)
+    summary["replicas_bitwise"] = True
+    return summary
+
+
+def dist_fused(card, workdir, result, fault=None, only=None):
+    """The fused runs on a mesh over NCCL (DIST_FUSED_RUNS), the ranks of
+    each world size in one spawn; each checked into ``result``; returns the
+    graph groups' launches summed over the ranks, by path."""
+    fwd, bwd = {}, {}
+    by_world = {}
+    for run, (_, data, axis, *_rest) in DIST_FUSED_RUNS.items():
+        if only is None or run in only:
+            by_world.setdefault(data * axis, []).append(run)
+    for world, names in sorted(by_world.items()):
+        t0 = time.perf_counter()
+        outs = _spawn(dist_fused_rank, world, workdir, "cuda", workdir, names, fault)
+        result[f"fused_spawn_{world}_s"] = time.perf_counter() - t0
+        for run in names:
+            ranks = [out[run] for out in outs]
+            result[run] = check_dist_fused_run(run, ranks)
+            fwd[f"dist_{run}"] = sum(o["result"]["launches"]["graph"][0] for o in ranks)
+            bwd[f"dist_{run}"] = sum(o["result"]["launches"]["graph"][1] for o in ranks)
+    return fwd, bwd
+
+
+def _replay_uncounted():
+    """Fault: a replay adds its attention launches but not its collectives."""
+    keep = StepGraphs._replay
+
+    def uncounted(captured):
+        captured.graph.replay()
+        attention.flash_attention_fwd.launches += captured.launches[0]
+        attention.flash_attention_bwd.launches += captured.launches[1]
+        return captured.losses
+
+    StepGraphs._replay = staticmethod(uncounted)
+    return lambda: setattr(StepGraphs, "_replay", staticmethod(keep))
+
+
+# --nccl --controls: each fault patched into the ranks of its run, whose
+# check must fail
+NCCL_FAULTS = {"replay_uncounted": _replay_uncounted}
+NCCL_CONTROLS = {"replay_uncounted": "fused_dp"}
+
+
+def nccl(controls=False) -> int:
+    """``--nccl``: phase 11 over NCCL, a card a rank (``dist``), then the
+    fused runs on a mesh (:func:`dist_fused`); ``--nccl --controls``: the
+    NCCL_CONTROLS faults against the fused runs' checks."""
+    global DIST_BACKEND
+    cards = torch.cuda.device_count()
+    if cards < NCCL_CARDS:
+        raise RuntimeError(f"--nccl runs ranks on {NCCL_CARDS} cards, one each; "
+                           f"{cards} visible")
+    DIST_BACKEND = "nccl"
+    start = time.perf_counter()
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True, timeout=60)
+    card = smi.stdout.strip().splitlines()[0]
+    log("\n".join(smi.stdout.strip().splitlines()))
+    log(f"torch {torch.__version__} cuda {torch.version.cuda} nccl "
+        f"{torch.cuda.nccl.version()} python {sys.version.split()[0]}")
+    _build.build_all()  # before any rank starts
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_nccl_") as workdir:
+        _datasets(workdir)
+        if controls:
+            for fault, run in NCCL_CONTROLS.items():
+                try:
+                    dist_fused(card, workdir, {}, fault=fault, only=(run,))
+                    caught, why = False, None
+                except AssertionError as e:
+                    caught, why = True, str(e)[:300]
+                log(f"control {json.dumps({'path': 'dist_fused', 'fault': fault, 'run': run,
+                                           'caught': caught, 'why': why})}")
+            return 0
+        fwd, bwd = dist(card, workdir)
+        log(f"elapsed after phase 11 over NCCL: {time.perf_counter() - start:.1f}s")
+        result = {"card": card, "backend": DIST_BACKEND, "cards": cards}
+        try:
+            more = dist_fused(card, workdir, result)
+        finally:
+            log(f"dist_fused {json.dumps(result, default=str)}")
+        fwd.update(more[0])
+        bwd.update(more[1])
+        log(f"elapsed after the fused runs: {time.perf_counter() - start:.1f}s")
+    print(json.dumps({"launches_by_path": {"flash_attention_fwd": fwd,
+                                           "flash_attention_bwd": bwd}}))
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": cards}}))
+    return 0
 
 
 # ------------------------------------------------------------------ 12. tools
@@ -3584,22 +3985,65 @@ def _batches_not_copied():
     return lambda: setattr(StepGraphs, "_copy_in", keep)
 
 
+def _pick_frozen_at_capture():
+    """Fault: a captured step's ``item_random`` pick is a constant the host
+    computed at capture (eager steps keep their device pick)."""
+    from dr4sr_tpu_torch.modules import augmentation
+
+    keep, host = augmentation.random_draws, int(np.random.default_rng(0).integers(3))
+
+    def frozen(*args, **kwargs):
+        draws = keep(*args, **kwargs)
+        if torch.cuda.is_current_stream_capturing():
+            draws["pick"] = torch.full_like(draws["pick"], host)
+        return draws
+
+    augmentation.random_draws = frozen
+    return lambda: setattr(augmentation, "random_draws", keep)
+
+
+def _remat_fresh_draws():
+    """Fault: remat's recompute draws fresh dropout masks, not the kept ones."""
+    from dr4sr_tpu_torch.modules import layers
+
+    keep = layers._KeptDropout.__call__
+
+    def fresh(self, t):
+        if self.replay and self.training and self.p > 0:
+            return F.dropout(t, self.p, True)
+        return keep(self, t)
+
+    layers._KeptDropout.__call__ = fresh
+    return lambda: setattr(layers._KeptDropout, "__call__", keep)
+
+
 FUSED_FAULTS = {"generator_unregistered": _generator_unregistered,
                 "batches_not_copied": _batches_not_copied}
+# faults of phase 10's other checks: (the fault, the check that must catch it)
+FUSED_MORE_CONTROLS = {"pick_frozen_at_capture": (_pick_frozen_at_capture, fused_picks),
+                       "remat_fresh_draws": (_remat_fresh_draws, fused_remat)}
 
 
 def fused_controls(datasets, workdir):
     """``path: fused``: SASRec's graph-against-eager check at N = 16,
-    unfaulted and with each of ``FUSED_FAULTS``; a fault is caught when the
-    check fails or the capture raises."""
-    for fault in (None, *FUSED_FAULTS):
-        trainer = Trainer(_fused_cfg(workdir, "SASRec"), datasets, workdir=workdir,
-                          device="cuda")
-        trainer.init_state()
-        undo = FUSED_FAULTS[fault]() if fault else (lambda: None)
+    unfaulted and with each of ``FUSED_FAULTS``, then each of
+    ``FUSED_MORE_CONTROLS`` against its check (CL4SRec's picks over many
+    replays; SASRec with remat against without); a fault is caught when
+    the check fails or the capture raises."""
+    runs = [(fault, FUSED_FAULTS.get(fault), None) for fault in (None, *FUSED_FAULTS)]
+    runs += [(fault, patch, check) for fault, (patch, check) in FUSED_MORE_CONTROLS.items()]
+    for fault, patch, check in runs:
+        undo = patch() if patch else (lambda: None)
         try:
-            parity = fused_vs_eager(trainer)
-            check_fused_vs_eager("SASRec", parity)
+            if check is None:
+                trainer = Trainer(_fused_cfg(workdir, "SASRec"), datasets, workdir=workdir,
+                                  device="cuda")
+                trainer.init_state()
+                parity = fused_vs_eager(trainer)
+                check_fused_vs_eager("SASRec", parity)
+            else:
+                parity = {}
+                check(workdir, parity)
             caught = False
         except (AssertionError, RuntimeError) as e:
             caught, parity = True, {"error": f"{type(e).__name__}: {e}"[:2000]}
@@ -3696,6 +4140,8 @@ def main() -> int:
         return 1
     if sys.argv[1:] == ["--controls"]:
         return controls()
+    if sys.argv[1:2] == ["--nccl"] and sys.argv[2:] in ([], ["--controls"]):
+        return nccl(controls=sys.argv[2:] == ["--controls"])
 
     # 1. device
     start = time.perf_counter()

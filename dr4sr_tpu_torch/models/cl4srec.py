@@ -79,22 +79,10 @@ def cl_loss(
                          valid=global_mask, reduce=reduce, axis=axis)
 
 
-def host_pick_refusal(config: Dict[str, Any]) -> Optional[str]:
-    """``item_random`` picks each view's augmentation on the host
-    (``modules/augmentation.py::sample_draws``, ``kind = KINDS[int(pick)]``),
-    which a CUDA graph cannot hold; a fixed ``augment_type`` draws on the
-    device only."""
-    if config["model"].get("augment_type", "item_random") == "item_random":
-        return ("augment_type item_random picks each view's augmentation on the host "
-                "(dr4sr_tpu_torch/modules/augmentation.py:90-91, int(pick))")
-    return None
-
-
 @register_model("CL4SRec")
 class CL4SRec(SASRec):
     contrastive = True
     aug_from_original = False
-    capture_refusal = staticmethod(host_pick_refusal)
 
     @staticmethod
     def build(config: Dict[str, Any], num_items: int, **kwargs) -> nn.Module:

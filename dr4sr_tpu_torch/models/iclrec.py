@@ -30,7 +30,6 @@ from typing import Any, Dict, Optional
 
 import torch
 
-from dr4sr_tpu_torch.models.cl4srec import host_pick_refusal
 from dr4sr_tpu_torch.models.registry import register_model
 from dr4sr_tpu_torch.models.sasrec import SASRec
 from dr4sr_tpu_torch.modules.augmentation import sample_draws
@@ -54,8 +53,6 @@ def _mean_rep(module, seq: torch.Tensor, seqlen: torch.Tensor) -> torch.Tensor:
 
 @register_model("ICLRec")
 class ICLRec(SASRec):
-    capture_refusal = staticmethod(host_pick_refusal)
-
     @staticmethod
     def build(config: Dict[str, Any], num_items: int, **kwargs):
         return SASRec.build(config, num_items, extra_embedding_rows=1, **kwargs)
@@ -98,7 +95,8 @@ class ICLRec(SASRec):
                   num_items: int, axis: Optional[Axis] = None):
         """The two views' augmentation draws (``augment_type``, at the
         augmentations' default ratios, as the JAX package's ``augment``
-        call); given the data axis, this rank's rows of the global batch's."""
+        call; ``item_random`` picks each view's kind on the device); given
+        the data axis, this rank's rows of the global batch's."""
         kind = model_cfg.get("augment_type", "item_random")
         return [sample_draws(generator, batch["in_item_id"], batch["seqlen"], kind, axis=axis)
                 for _ in range(2)]

@@ -14,15 +14,25 @@ streams of ``jax.random`` and torch differ, so tests feed JAX's draws in):
   ``int(beta·len)`` items from ``start`` is shuffled in place by sorting
   ``start + u`` inside it against each outside position's own index.
 
-:func:`sample_draws` draws one kind's tensors; for ``item_random`` it first
-picks ONE branch for the whole batch (JAX's ``lax.switch``), not one per
-row. Under data parallelism (``axis``, the data axis) it draws for the
-global batch from a generator in lockstep on every rank and keeps this
-rank's rows, so the ranks' views are one process's, draw for draw; the
+:func:`sample_draws` draws one kind's tensors. ``item_random`` picks ONE
+branch for the whole batch (JAX's ``lax.switch``), not one per row, and
+picks it on the device: it draws one fixed layout whatever the pick, in
+this order — ``pick`` [1] (an index into the kinds), one ``start`` uniform
+[B] that crop and reorder each scale by their own window, one ``u`` [B, L]
+that mask and reorder share — and :func:`apply_draws` computes every
+branch's view and selects one with ``torch.where`` on the pick. Nothing
+reads the pick on the host, so a CUDA graph of the step holds it, and the
+per-step path and a graph of N steps draw one stream. (Before the pick
+moved to the device, ``item_random`` drew the pick, then only the chosen
+branch's tensors: that stream is gone, at N = 1 too.)
+
+Under data parallelism (``axis``, the data axis) the draws are made for
+the global batch from a generator in lockstep on every rank, and each rank
+keeps its rows, so the ranks' views are one process's, draw for draw; the
 pick is one draw a batch, the same on every rank.
 :func:`augment` = :func:`apply_draws` ∘ :func:`sample_draws`.
 :func:`random_augmentation` picks per row between a draw for short rows and
-one for long rows (reference ``Random_Augmentation``).
+one for long rows (reference ``Random_Augmentation``), each a device pick.
 """
 
 from __future__ import annotations
@@ -35,7 +45,9 @@ from dr4sr_tpu_torch.parallel.collectives import Axis
 
 Seq = torch.Tensor  # [B, L] int
 Lens = torch.Tensor  # [B] int
-Draws = Dict[str, object]  # {"kind": str, "start": [B] or None, "u": [B, L] or None}
+Draws = Dict[str, object]
+# one kind: {"kind": str, "start": [B] or None, "u": [B, L] or None};
+# item_random: {"kind": "item_random", "pick": [1], "branches": [one kind's draws, ...]}
 
 KINDS = ("item_crop", "item_mask", "item_reorder")
 
@@ -92,38 +104,65 @@ def _rand(generator: Optional[torch.Generator], shape, device,
     return axis.chunk(u, 0)
 
 
-def _window_starts(generator: Optional[torch.Generator], seqlen: Lens, sub_len: Lens,
-                   axis: Optional[Axis] = None) -> Lens:
-    """Uniform over [0, max(len − sub_len + 1, 1))."""
+def _scaled_starts(u: torch.Tensor, seqlen: Lens, sub_len: Lens) -> Lens:
+    """Window starts uniform over [0, max(len − sub_len + 1, 1)) from uniforms ``u`` [B]."""
     hi = torch.clamp(seqlen - sub_len + 1, min=1)
-    u = _rand(generator, seqlen.shape, seqlen.device, axis)
     return torch.minimum((u * hi).to(seqlen.dtype), hi - 1)
+
+
+def _kind_draws(kind: str, seqlen: Lens, start_u: Optional[torch.Tensor],
+                u: Optional[torch.Tensor], tao: float, beta: float) -> Draws:
+    """One kind's draws from a ``start`` uniform [B] and uniforms ``u`` [B, L]."""
+    if kind == "item_crop":
+        return {"kind": kind, "start": _scaled_starts(start_u, seqlen, crop_len(seqlen, tao)),
+                "u": None}
+    if kind == "item_mask":
+        return {"kind": kind, "start": None, "u": u}
+    if kind == "item_reorder":
+        return {"kind": kind, "start": _scaled_starts(start_u, seqlen, _scaled_len(beta, seqlen)),
+                "u": u}
+    raise ValueError(f"unknown augmentation kind {kind!r}")
+
+
+def random_draws(generator: Optional[torch.Generator], seq: Seq, seqlen: Lens,
+                 kinds: Sequence[str] = KINDS, tao: float = 0.2, beta: float = 0.2,
+                 axis: Optional[Axis] = None) -> Draws:
+    """One of ``kinds`` for the whole batch, picked on the device: ``pick``
+    [1], then one ``start`` uniform [B] and one ``u`` [B, L], whatever the
+    pick; each branch's draws are made from them."""
+    pick = torch.randint(0, len(kinds), (1,), generator=generator, device=seq.device)
+    start_u = _rand(generator, seqlen.shape, seq.device, axis)
+    u = _rand(generator, seq.shape, seq.device, axis)
+    return {"kind": "item_random", "pick": pick,
+            "branches": [_kind_draws(k, seqlen, start_u, u, tao, beta) for k in kinds]}
 
 
 def sample_draws(generator: Optional[torch.Generator], seq: Seq, seqlen: Lens, kind: str,
                  tao: float = 0.2, beta: float = 0.2, axis: Optional[Axis] = None) -> Draws:
-    """The draws of one ``kind`` for this batch; ``item_random`` picks the
-    kind first, one for the whole batch. ``axis`` (the data axis): this
-    rank's rows of the global batch's draws."""
+    """The draws of one ``kind`` for this batch (``item_random``:
+    :func:`random_draws` over the three kinds). ``axis`` (the data axis):
+    this rank's rows of the global batch's draws."""
     if kind == "item_random":
-        pick = torch.randint(0, len(KINDS), (1,), generator=generator, device=seq.device)
-        kind = KINDS[int(pick)]
-    draws: Draws = {"kind": kind, "start": None, "u": None}
-    if kind == "item_crop":
-        draws["start"] = _window_starts(generator, seqlen, crop_len(seqlen, tao), axis)
-    elif kind == "item_mask":
-        draws["u"] = _rand(generator, seq.shape, seq.device, axis)
-    elif kind == "item_reorder":
-        draws["start"] = _window_starts(generator, seqlen, _scaled_len(beta, seqlen), axis)
-        draws["u"] = _rand(generator, seq.shape, seq.device, axis)
-    else:
+        return random_draws(generator, seq, seqlen, KINDS, tao=tao, beta=beta, axis=axis)
+    if kind not in KINDS:
         raise ValueError(f"unknown augmentation kind {kind!r}")
-    return draws
+    start_u = _rand(generator, seqlen.shape, seq.device, axis) if kind != "item_mask" else None
+    u = _rand(generator, seq.shape, seq.device, axis) if kind != "item_crop" else None
+    return _kind_draws(kind, seqlen, start_u, u, tao, beta)
 
 
 def apply_draws(seq: Seq, seqlen: Lens, draws: Draws, tao: float = 0.2, gamma: float = 0.7,
                 beta: float = 0.2, mask_id: int = 0) -> Tuple[Seq, Lens]:
     kind = draws["kind"]
+    if kind == "item_random":  # every branch, then the picked one's view
+        views = [apply_draws(seq, seqlen, b, tao=tao, gamma=gamma, beta=beta, mask_id=mask_id)
+                 for b in draws["branches"]]
+        out_seq, out_len = views[-1]
+        for i in range(len(views) - 2, -1, -1):
+            hit = draws["pick"] == i
+            out_seq = torch.where(hit, views[i][0], out_seq)
+            out_len = torch.where(hit, views[i][1], out_len)
+        return out_seq, out_len
     if kind == "item_crop":
         return item_crop(seq, seqlen, tao, draws["start"])
     if kind == "item_mask":
@@ -156,15 +195,11 @@ def random_augmentation(
     """Length-conditioned augmentation (reference ``Random_Augmentation``,
     ``module/data_augmentation.py:194-223``): rows longer than the threshold
     take a kind drawn from ``long_kinds``, the others one from
-    ``short_kinds`` (one pick of each a batch). ``draws`` gives the (short,
-    long) draws instead of sampling them."""
+    ``short_kinds`` (one device pick of each a batch, :func:`random_draws`).
+    ``draws`` gives the (short, long) draws instead of sampling them."""
     if draws is None:
-        draws = tuple(
-            sample_draws(generator, seq, seqlen,
-                         kinds[int(torch.randint(0, len(kinds), (1,), generator=generator,
-                                                 device=seq.device))],
-                         tao=tao, beta=beta)
-            for kinds in (short_kinds, long_kinds))
+        draws = tuple(random_draws(generator, seq, seqlen, kinds, tao=tao, beta=beta)
+                      for kinds in (short_kinds, long_kinds))
     kw = dict(tao=tao, gamma=gamma, beta=beta, mask_id=mask_id)
     s_seq, s_len = apply_draws(seq, seqlen, draws[0], **kw)
     l_seq, l_len = apply_draws(seq, seqlen, draws[1], **kw)

@@ -8,7 +8,8 @@ Port of ``dr4sr_tpu/modules/layers.py:31-355`` and ``:525-538``:
   :func:`dr4sr_tpu_torch.ops.attention.multihead_attention` (the CUDA kernel
   on the card), never ``nn.MultiheadAttention`` or SDPA.
 * :class:`TransformerEncoder` — a stack of them; ``remat`` recomputes each
-  layer on the backward pass (``torch.utils.checkpoint``).
+  layer on the backward pass (``torch.utils.checkpoint``) with the dropout
+  masks of its first forward, as JAX's ``nn.remat`` replays the key.
 * :class:`TransformerDecoderLayer`, :class:`TransformerDecoder` — the
   regenerator's post-norm decoder: causal self-attention, cross-attention
   over the encoder memory (both through ``multihead_attention``), FFN; and
@@ -29,7 +30,7 @@ flax's ``nn.gelu`` is the tanh approximation, so ``"gelu"`` here is
 
 from __future__ import annotations
 
-from typing import Callable, Optional, Sequence, Tuple
+from typing import Callable, List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -144,13 +145,38 @@ class TransformerEncoderLayer(nn.Module):
         x: torch.Tensor,  # [B, L, D]
         key_padding_mask: Optional[torch.Tensor] = None,  # [B, L] True = pad
         causal: bool = True,
+        kept: Optional[List[torch.Tensor]] = None,  # a remat'd call's masks
     ) -> torch.Tensor:
+        drop = self.dropout if kept is None else _KeptDropout(self.dropout, kept)
         q, k, v = (_heads(t, self.num_heads) for t in self.qkv(x).split(x.shape[-1], dim=-1))
         attn = multihead_attention(q, k, v, key_padding_mask, causal)
-        x = self.norm1(x + self.dropout(self.out_proj(_merge(attn))))
-        y = self.dropout(self.act(self.ffn1(x)))
-        y = self.dropout(self.ffn2(y))
+        x = self.norm1(x + drop(self.out_proj(_merge(attn))))
+        y = drop(self.act(self.ffn1(x)))
+        y = drop(self.ffn2(y))
         return self.norm2(x + y)
+
+
+class _KeptDropout:
+    """``nn.Dropout`` for one call of a remat'd layer, whose masks live in
+    ``kept``. While ``kept`` is empty (the first forward) each call draws as
+    ``nn.Dropout`` draws (``torch.native_dropout``: the same draws and bits)
+    and keeps its mask; once it is full (the recompute in the backward) the
+    calls multiply by the kept masks in order, and draw nothing."""
+
+    def __init__(self, dropout: nn.Dropout, kept: List[torch.Tensor]) -> None:
+        self.p, self.training, self.kept = dropout.p, dropout.training, kept
+        self.replay, self.used = len(kept) > 0, 0
+
+    def __call__(self, t: torch.Tensor) -> torch.Tensor:
+        if not self.training or self.p == 0.0:
+            return t
+        if self.replay:
+            mask = self.kept[self.used]
+            self.used += 1
+            return t * mask * (1.0 / (1.0 - self.p))
+        out, mask = torch.native_dropout(t, self.p, True)
+        self.kept.append(mask)
+        return out
 
 
 class TransformerEncoder(nn.Module):
@@ -176,9 +202,23 @@ class TransformerEncoder(nn.Module):
         )
 
     def forward(self, x, key_padding_mask=None, causal=True):
+        """``remat``: each layer's activations are recomputed in the
+        backward instead of kept. The recompute must draw the dropout masks
+        of the first forward, as JAX's ``nn.remat`` replays the same key.
+        ``torch.utils.checkpoint``'s own way (``preserve_rng_state``) saves
+        and restores the generators' states on the host, which a CUDA graph
+        of the step cannot hold; a graph-safe generator state
+        (``graphsafe_get_state``/``graphsafe_set_state``) would have to be
+        cloned and registered with the graph in the middle of a capture.
+        So the first forward keeps each dropout's mask (bool, a quarter of
+        an f32 activation) and the recompute multiplies by it
+        (:class:`_KeptDropout`): nothing touches a generator's state, the
+        draws are ``nn.Dropout``'s, and a step with remat takes the draws,
+        and the gradients, of the same step without it."""
         for layer in self.layers:
             if self.remat and torch.is_grad_enabled():
-                x = checkpoint(layer, x, key_padding_mask, causal, use_reentrant=False)
+                x = checkpoint(layer, x, key_padding_mask, causal, [], use_reentrant=False,
+                               preserve_rng_state=False)
             else:
                 x = layer(x, key_padding_mask, causal)
         return x

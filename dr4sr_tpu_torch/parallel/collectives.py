@@ -47,14 +47,25 @@ Every call adds to :data:`COUNTER`, by kind and axis, its calls and the
 bytes of its result on this rank (an all-reduce: the tensor; an all-gather:
 the gathered tensor; a ring exchange: the tensors sent). The tests read the
 counter where the JAX package's tests read collective ops out of the
-compiled HLO.
+compiled HLO. A call made while a CUDA graph captures runs at each replay,
+not at the capture: ``train.fused.StepGraphs`` takes the capture's counts
+back out (:meth:`CollectiveCounter.counts`, :meth:`CollectiveCounter.restore`)
+and adds them at every replay (:meth:`CollectiveCounter.add_counts`).
+
+Under NCCL every collective here can be captured: a collective orders the
+NCCL stream after the current one and back by events, and ``work.wait()``
+makes the current stream wait; nothing waits on the host or allocates
+host memory. The communicators must exist before a capture, which a
+step run once eagerly makes.
 
 A world of one (``Axis.size == 1``) makes no call and counts nothing.
 
 Point-to-point sends of CUDA tensors go through pinned host memory when the
 axis's backend is gloo (decided by the backend's name, never by catching an
 error): gloo's send and receive take host memory. Every other collective
-takes the tensors where they are.
+takes the tensors where they are. gloo stages CUDA tensors through the
+host in its collectives too, so no gloo collective of CUDA tensors can be
+captured (``train.fused.capture_refusal`` refuses the configuration).
 """
 
 from __future__ import annotations
@@ -108,6 +119,20 @@ class CollectiveCounter:
     def add(self, kind: str, axis: Axis, nbytes: int) -> None:
         self.calls[(kind, axis.name)] += 1
         self.bytes[(kind, axis.name)] += int(nbytes)
+
+    def counts(self) -> Tuple[Dict[Tuple[str, str], int], Dict[Tuple[str, str], int]]:
+        """Copies of the calls and the bytes, by (kind, axis)."""
+        return dict(self.calls), dict(self.bytes)
+
+    def restore(self, counts) -> None:
+        """The counts back to ``counts`` (:meth:`counts`)."""
+        self.calls, self.bytes = defaultdict(int, counts[0]), defaultdict(int, counts[1])
+
+    def add_counts(self, counts) -> None:
+        """``counts`` (calls and bytes by (kind, axis)) added."""
+        for mine, theirs in zip((self.calls, self.bytes), counts):
+            for key, n in theirs.items():
+                mine[key] += n
 
     def snapshot(self) -> Dict[str, Dict[str, int]]:
         """``{"<kind>:<axis>": {"calls": n, "bytes": b}}``."""
@@ -180,6 +205,9 @@ def ring_exchange(tensors: Sequence[torch.Tensor], axis: Axis) -> List[torch.Ten
     for t in tensors:
         t = t.contiguous()
         staged = stages_through_host(axis, t)
+        if staged and torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(f"a ring exchange over the gloo axis {axis.name!r} stages "
+                               f"through host memory, which a CUDA graph cannot hold")
         send = t.to("cpu").pin_memory() if staged else t
         recv = torch.empty(send.shape, dtype=send.dtype, device=send.device,
                            pin_memory=staged)

@@ -16,11 +16,17 @@ those of N eager steps.
   int32 widened to int64 as ``Trainer.device_batch`` widens them;
 * :func:`step_batches` — the N per-step batches of a stack, each with the
   trainer's ``batch_extras``;
-* :func:`capture_refusal` — why a configuration's step cannot be captured;
+* :func:`capture_refusal` — why a trainer's steps cannot be captured: on
+  the card over a gloo mesh axis, and only there;
 * :class:`StepGraphs` — the graphs of one trainer: static ``[N, B, ...]``
   inputs fed from pinned host buffers, one graph per (kind, group length)
   captured on a side stream into one shared memory pool, the trainer's
   generator registered with each.
+
+On a mesh over NCCL a graph holds the step's collectives (the gradient
+all-reduce over ``data``, EP's gathers over ``model``, CP's ring): they are
+captured as the kernels are, and replayed in order on every rank, each
+rank replaying its own graph of the same steps.
 
 On the CPU a group's steps run eagerly one after another (the plain
 version of the graph). On the card a group is captured or the call raises;
@@ -31,12 +37,13 @@ from __future__ import annotations
 
 import gc
 import time
-from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
+from typing import Callable, Dict, Iterable, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
 from dr4sr_tpu_torch.ops import attention
+from dr4sr_tpu_torch.parallel.collectives import COUNTER
 
 Batch = Dict[str, torch.Tensor]
 HostBatch = Dict[str, np.ndarray]
@@ -59,25 +66,34 @@ def step_batches(stacked: Batch, extras: Batch, n: int) -> List[Batch]:
     return [{**{k: v[i] for k, v in stacked.items()}, **extras} for i in range(n)]
 
 
-def capture_refusal(model_class, config) -> Optional[str]:
-    """Why a step of ``model_class`` under ``config`` cannot be captured into
-    a CUDA graph, or None. A model gives its own reason through a static
-    ``capture_refusal(config)``."""
-    if config["model"].get("remat", False):
-        return ("model.remat recomputes each layer in the backward with "
-                "torch.utils.checkpoint, which saves and restores the RNG state on the host")
-    own = getattr(model_class, "capture_refusal", None)
-    return own(config) if own is not None else None
+def capture_refusal(device, backends: Iterable[str]) -> Optional[str]:
+    """Why the steps of a trainer on ``device``, whose mesh axes of more
+    than one rank run over ``backends``, cannot be captured into CUDA
+    graphs, or None. One case: a CUDA device and a gloo axis, whose
+    collectives stage CUDA tensors through host memory
+    (``parallel/collectives.py::stages_through_host``)."""
+    if torch.device(device).type == "cuda" and "gloo" in set(backends):
+        return ("its mesh runs over gloo, which stages CUDA tensors through host memory "
+                "(dr4sr_tpu_torch/parallel/collectives.py::stages_through_host) where a CUDA "
+                "graph cannot follow; run the mesh over NCCL (a card a rank)")
+    return None
 
 
-def _launch_counts() -> Tuple[int, int]:
-    return attention.flash_attention_fwd.launches, attention.flash_attention_bwd.launches
+def _counts():
+    """The attention kernels' launch counters and the collectives' counts."""
+    return ((attention.flash_attention_fwd.launches, attention.flash_attention_bwd.launches),
+            COUNTER.counts())
+
+
+def _since(before: dict, after: dict) -> dict:
+    return {k: n - before.get(k, 0) for k, n in after.items() if n != before.get(k, 0)}
 
 
 class _Captured(NamedTuple):
     graph: "torch.cuda.CUDAGraph"
     losses: torch.Tensor  # [n], rewritten by every replay
     launches: Tuple[int, int]  # attention launches in one replay
+    collectives: Tuple[dict, dict]  # calls and bytes by (kind, axis) in one replay
     capture_ms: float
 
 
@@ -98,8 +114,9 @@ class StepGraphs:
       and replayed. The graphs share one memory pool and are replayed one
       at a time on the current stream, so no graph's memory is in use while
       another runs;
-    * the attention kernels' launch counters are what ran: capture's
-      increments are taken back out, and each replay adds them once.
+    * the attention kernels' launch counters and the collectives' counter
+      (``collectives.COUNTER``) are what ran: capture's increments are
+      taken back out, and each replay adds them once.
 
     A graph reads the parameters, the optimizer's state, the meta
     parameters and ``extras`` by address: whoever rebinds one of them
@@ -164,9 +181,14 @@ class StepGraphs:
             if kind not in self.warm:
                 return self._warm_up(kind, step, batches)
             captured = self.graphs[(kind, n)] = self._capture(step, batches)
+        return self._replay(captured)
+
+    @staticmethod
+    def _replay(captured: _Captured) -> torch.Tensor:
         captured.graph.replay()
         attention.flash_attention_fwd.launches += captured.launches[0]
         attention.flash_attention_bwd.launches += captured.launches[1]
+        COUNTER.add_counts(captured.collectives)
         return captured.losses
 
     def _warm_up(self, kind: str, step: StepFn, batches: List[Batch]) -> torch.Tensor:
@@ -184,7 +206,7 @@ class StepGraphs:
         # replay reads its offset and advances it by the whole graph's draws
         # (the default generator, dropout's, is registered by the capture)
         graph.register_generator_state(self.generator)
-        before = _launch_counts()
+        before = _counts()
         t0 = time.perf_counter()
         # no garbage collection during capture: a collection that frees a
         # CUDA graph (or event) left in a reference cycle calls the CUDA
@@ -193,14 +215,21 @@ class StepGraphs:
         gc.collect()
         collecting = gc.isenabled()
         gc.disable()
+        # errors on unsafe calls from this thread only: NCCL's watchdog
+        # thread queries its collectives' events while this one captures
         try:
-            with torch.cuda.graph(graph, pool=self.pool, stream=self.stream):
+            with torch.cuda.graph(graph, pool=self.pool, stream=self.stream,
+                                  capture_error_mode="thread_local"):
                 losses = torch.stack([step(b) for b in batches])
         finally:
             if collecting:
                 gc.enable()
         ms = (time.perf_counter() - t0) * 1e3
-        after = _launch_counts()
-        # capture ran nothing: what the wrappers counted runs at each replay
-        attention.flash_attention_fwd.launches, attention.flash_attention_bwd.launches = before
-        return _Captured(graph, losses, (after[0] - before[0], after[1] - before[1]), ms)
+        (fwd, bwd), (calls, nbytes) = _counts()
+        # capture ran nothing: what the wrappers and collectives counted
+        # runs at each replay
+        (fwd0, bwd0), counts0 = before
+        attention.flash_attention_fwd.launches, attention.flash_attention_bwd.launches = fwd0, bwd0
+        COUNTER.restore(counts0)
+        return _Captured(graph, losses, (fwd - fwd0, bwd - bwd0),
+                         (_since(counts0[0], calls), _since(counts0[1], nbytes)), ms)

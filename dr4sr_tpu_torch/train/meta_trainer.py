@@ -49,7 +49,10 @@ trainer's fused loop does: outside warm-up a group stops at the next
 ``interval`` boundary, so the outer step between groups sees the state the
 per-step loop would; warm groups replay the plain step's CUDA graph and
 weighted groups a weighted step's (``train.fused``), which reads the meta
-parameters in place; the outer step runs eagerly between groups.
+parameters in place; the outer step runs eagerly between groups. On a
+mesh (DP, EP) the weighted groups' graphs hold their steps' collectives
+as the plain step's do, and the outer step's collectives run eagerly
+between them.
 """
 
 from __future__ import annotations

@@ -34,8 +34,9 @@ ICLRec's intents) into ``batch_extras`` at the start of every epoch
 N, as the JAX trainer's fused loop does: a group of N runs as one dispatch
 (``train.fused``: on the card one replay of a CUDA graph of the N steps,
 with Adam ``capturable``; on the CPU the same steps one after another), a
-leftover group of 1 as a plain step. A model whose step cannot be captured
-is refused up front (``fused.capture_refusal``).
+leftover group of 1 as a plain step. Every model and option runs so, on a
+mesh too, where each rank's graph holds the step's collectives; on the
+card over a gloo mesh it is refused up front (``fused.capture_refusal``).
 
 DR4SR+ (``MetaModel``, ``is_meta``) trains under the subclass
 ``train.meta_trainer.MetaTrainer``, which ``quickstart.make_trainer`` picks;
@@ -91,10 +92,6 @@ rank), as the JAX trainer places them (its ``:67-72``, ``:118-144``,
   the global rows, then broadcast from rank 0, so it is one value on
   every rank (the card's k-means sums with atomics, which need not round
   alike on two ranks).
-
-At world size > 1 one thing is refused, with a ``NotImplementedError`` that
-says why: ``train.steps_per_dispatch > 1``, whose CUDA graphs would hold the
-collectives.
 """
 
 from __future__ import annotations
@@ -268,18 +265,21 @@ class Trainer:
         if self.steps_per_dispatch < 1:
             raise ValueError(f"train.steps_per_dispatch must be at least 1, got "
                              f"{self.steps_per_dispatch}")
-        if self.steps_per_dispatch > 1:
-            refusal = capture_refusal(self.model_class, config)
+        self._eager_groups = bool(cfg_t.get("disable_jit"))
+        if self._captures and self.world_size > 1:
+            refusal = capture_refusal(self.device, [
+                self.plan.axis(name).backend
+                for name, size in ((DATA_AXIS, self.plan.data_size),
+                                   (MODEL_AXIS, self.plan.model_size)) if size > 1])
             if refusal is not None:
                 raise NotImplementedError(
-                    f"train.steps_per_dispatch={self.steps_per_dispatch} with "
-                    f"{self.model_name}: its step cannot be captured into a CUDA graph: "
-                    f"{refusal}; use 1")
+                    f"train.steps_per_dispatch={self.steps_per_dispatch} at world size "
+                    f"{self.world_size}: the steps cannot be captured into CUDA graphs: "
+                    f"{refusal}; or use train.steps_per_dispatch=1")
         prec = str(cfg_t.get("precision", "fp32")).lower()
         if prec not in ("fp32", "float32", "bf16", "bfloat16"):
             raise ValueError(f"train.precision must be fp32 or bf16, got {prec!r}")
         self.compute_dtype = torch.bfloat16 if prec.startswith("bf") else None
-        self._refuse_on_mesh()
         # the plans installed around every step and eval: EP's (the table
         # row-sharded) and CP's (the ring over the model axis)
         self._ep_plan = self.plan if self.plan.ep_sharded() else None
@@ -316,23 +316,11 @@ class Trainer:
         # the epoch's loss sum, on the device; captured steps add to it by address
         self._loss_sum = torch.zeros((), device=self.device)
         self._graphs: Optional[StepGraphs] = None  # the fused groups' CUDA graphs
-        self._eager_groups = bool(cfg_t.get("disable_jit"))
         self._tb_writer: Optional[SummaryWriter] = None
 
     @property
     def world_size(self) -> int:
         return self.plan.data_size * self.plan.model_size
-
-    def _refuse_on_mesh(self) -> None:
-        """The refusals at world size > 1, each with its reason."""
-        if self.world_size == 1:
-            return
-        if self.steps_per_dispatch > 1:
-            raise NotImplementedError(
-                f"train.steps_per_dispatch={self.steps_per_dispatch} at world size "
-                f"{self.world_size}: a CUDA graph of the steps would hold the collectives "
-                f"(the gradient all-reduce, the EP gathers, the ring), which the port "
-                f"does not capture yet; use 1")
 
     @contextlib.contextmanager
     def _mesh_plans(self):
@@ -561,10 +549,20 @@ class Trainer:
         self._group(batches, self.train_step, "train", self._update)
 
     def _group(self, batches, step, kind: str, update) -> None:
-        if len(batches) == 1:
-            self._loss_sum.add_(step(self.device_batch(batches[0], is_train=True)))
-        else:
-            self.fused_steps(batches, kind, update)
+        """A group as runs of batches of one shape: a run of one as ``step``,
+        a longer one through :meth:`fused_steps`. The loader pads every
+        batch to the batch size (``valid=False``), so a group is one run;
+        a batch of another shape (one a loader left short) goes as a run of
+        its own, so that the steps are the per-step path's, batch for batch."""
+        def shape(batch):
+            return tuple((k, np.shape(v)) for k, v in sorted(batch.items()))
+
+        for _, run in itertools.groupby(batches, key=shape):
+            run = list(run)
+            if len(run) == 1:
+                self._loss_sum.add_(step(self.device_batch(run[0], is_train=True)))
+            else:
+                self.fused_steps(run, kind, update)
 
     def fused_steps(self, batches, kind: str, update) -> torch.Tensor:
         """``len(batches)`` optimizer steps of ``update`` (a step without
@@ -572,8 +570,11 @@ class Trainer:
         ``multi_train_step``: on the card one replay of the CUDA graph of
         ``kind``'s steps at this group length (:class:`fused.StepGraphs`),
         on the CPU the same steps one after another. Each loss is added to
-        the epoch's sum; returns the [n] losses."""
-        hosts = [self.host_transform(b, is_train=True) for b in batches]
+        the epoch's sum; returns the [n] losses. The steps' batches are
+        :meth:`host_shard`'s, as the per-step path's: under a mesh each is
+        padded to the ``data`` multiple (as the JAX loop pads each) and cut to
+        this rank's rows, with the ``global_*`` keys."""
+        hosts = [self.host_shard(b, is_train=True) for b in batches]
 
         def step(batch):
             loss = update(batch)

@@ -252,31 +252,15 @@ class _FakeMesh:
         return self.sizes[dim]
 
 
-@pytest.mark.parametrize("model,train,data,shard,match", [
-    ("SASRec", {"steps_per_dispatch": 4}, 2, False, "CUDA graph"),
-], ids=["fused"])
-def test_refusals_at_world_size_above_one(setup, model, train, data, shard, match):
-    root, cfg = setup
-    cfg = copy.deepcopy(cfg)
-    cfg["model"]["model"] = model
-    cfg["train"].update(train)
-    plan = MeshPlan(mesh=_FakeMesh(data, 2 if shard else 1), shard_embedding=shard)
-    with pytest.raises(NotImplementedError, match=match):
-        make_trainer(cfg, prepare_datasets(copy.deepcopy(cfg), root=root), device="cpu",
-                     mesh_plan=plan)
-
-
 @pytest.mark.parametrize("sub_model,overrides,mesh,error,match", [
     ("SASRec", {"model": {"context_parallel": 2}}, (1, 2), ValueError, "context_parallel"),
-    ("SASRec", {"train": {"steps_per_dispatch": 4}}, (2, 1), NotImplementedError,
-     "CUDA graph"),
     ("NCL", {}, (2, 1), NotImplementedError, "refresh_state"),
     ("ICLRec", {}, (1, 2), NotImplementedError, "refresh_state"),
-], ids=["cp", "fused", "ncl", "iclrec"])
+], ids=["cp", "ncl", "iclrec"])
 def test_meta_trainer_refusals_on_a_mesh(setup, sub_model, overrides, mesh, error, match):
     """What DR4SR+ still refuses on a mesh: context parallelism (as the JAX
-    package), CUDA graphs of collectives, and the sub-models whose per-epoch
-    state the JAX bilevel epoch never fits (it fails on them)."""
+    package), and the sub-models whose per-epoch state the JAX bilevel
+    epoch never fits (it fails on them)."""
     root, cfg = setup
     cfg = copy.deepcopy(cfg)
     cfg["model"].update(model="MetaModel", sub_model=sub_model)

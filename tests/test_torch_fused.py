@@ -9,12 +9,10 @@ version of the CUDA graph that the card replays.
   DR4SR+ at N = 4 (``interval`` 3) and N = 5 (``interval`` 5) equal to its
   per-step run (parameters, meta parameters, the meta optimizer's state,
   outer-step count);
-* the same contract for every model that is not refused (dropout 0.1);
+* the same contract for every model of the zoo (dropout 0.1);
 * the groups themselves against the JAX package's fused loop: recording
   subclasses of both trainers log each dispatch (a group's size and rows,
   a single step, an outer step) over three epochs, and the logs are equal;
-* each refusal by name: ``item_random`` views (CL4SRec, CL4SRec2, ICLRec,
-  and DR4SR+ around CL4SRec) and ``model.remat``;
 * the pieces: the host stack's dtypes, per-epoch state copied in place,
   optimizer state made before any step, Adam not capturable on the CPU.
 """
@@ -147,7 +145,7 @@ def test_fused_fit_end_to_end(root, tmp_path):
     ("ICLRec", {"augment_type": "item_reorder"}),
 ], ids=lambda v: v if isinstance(v, str) else None)
 def test_fused_parity_across_the_zoo(root, model, model_cfg):
-    """Every model that is not refused: N = 3 ≡ N = 1 over 2 epochs, its
+    """Every model of the zoo: N = 3 ≡ N = 1 over 2 epochs, its
     own draws (views, edge masks, noise) and per-epoch state included."""
     runs = []
     for spd in (1, 3):
@@ -369,33 +367,6 @@ def test_meta_groups_match_jax(meta_root):
 
 
 # ----------------------------------------------------------------- refusals
-@pytest.mark.parametrize("model,model_cfg,match", [
-    ("CL4SRec", {"augment_type": "item_random"}, "augmentation.py:90-91"),
-    ("CL4SRec2", {}, "augmentation.py:90-91"),
-    ("ICLRec", {"augment_type": "item_random"}, "augmentation.py:90-91"),
-    ("SASRec", {"remat": True}, "remat"),
-])
-def test_refused_by_name(root, model, model_cfg, match):
-    cfg = _config(model, small=True, steps_per_dispatch=4)
-    cfg["model"].update(model_cfg)
-    datasets = prepare_datasets(cfg, root=root)
-    with pytest.raises(NotImplementedError, match=match) as err:
-        Trainer(cfg, datasets, device="cpu")
-    assert model in str(err.value) and "steps_per_dispatch=4" in str(err.value)
-    cfg["train"]["steps_per_dispatch"] = 1  # the same configuration per step is accepted
-    Trainer(cfg, datasets, device="cpu")
-
-
-def test_meta_refuses_an_item_random_sub_model(meta_root):
-    cfg = _meta_config()
-    cfg["model"]["sub_model"] = "CL4SRec"
-    cfg["_cli_overrides"]["train"]["steps_per_dispatch"] = 4
-    cfg["_cli_overrides"]["model"].update(embed_dim=16, hidden_size=32)
-    with pytest.raises(NotImplementedError, match="augmentation.py:90-91"):
-        MetaTrainer(cfg, prepare_datasets(cfg, root=meta_root), device="cpu",
-                    config_dir=CONFIG_DIR)
-
-
 def test_steps_per_dispatch_below_one_is_refused(root):
     cfg = _config(steps_per_dispatch=0)
     with pytest.raises(ValueError, match="at least 1"):
@@ -477,7 +448,8 @@ def test_capture_without_garbage_collection_and_its_counts_taken_back(monkeypatc
             seen["registered"] = generator
 
     @contextlib.contextmanager
-    def fake_capture(graph, pool=None, stream=None):
+    def fake_capture(graph, pool=None, stream=None, capture_error_mode="global"):
+        seen["capture_error_mode"] = capture_error_mode
         seen["collecting during capture"] = gc.isenabled()
         yield
 
@@ -493,7 +465,8 @@ def test_capture_without_garbage_collection_and_its_counts_taken_back(monkeypatc
         return batch["x"].sum()
 
     captured = runner._capture(step, [{"x": torch.full((2,), float(i))} for i in range(3)])
-    assert seen == {"registered": runner.generator, "collecting during capture": False}
+    assert seen == {"registered": runner.generator, "collecting during capture": False,
+                    "capture_error_mode": "thread_local"}
     assert gc.isenabled()
     assert (attention.flash_attention_fwd.launches, attention.flash_attention_bwd.launches) == before
     assert captured.launches == (6, 6)

@@ -295,9 +295,6 @@ def test_cli_overrides_reach_the_sub_model_config(root):
 
 @pytest.mark.parametrize("override,error,match", [
     ({"model": {"context_parallel": 2}}, ValueError, "context_parallel"),
-    # a CL4SRec sub-model's item_random views pick on the host: not capturable
-    ({"train": {"steps_per_dispatch": 4}, "model": {"sub_model": "CL4SRec"}},
-     NotImplementedError, "steps_per_dispatch"),
     # its aux_loss reads refresh_state's prototypes, which the bilevel epoch
     # never fits (the JAX package fails there: tests/test_torch_meta_aux.py)
     ({"model": {"sub_model": "NCL"}}, NotImplementedError, "aux_loss"),

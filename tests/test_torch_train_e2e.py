@@ -190,8 +190,6 @@ def test_bf16_mixed_precision_training(root, tmp_path):
 
 
 @pytest.mark.parametrize("train, error", [
-    # CL4SRec's item_random views pick on the host: its step cannot be captured
-    ({"steps_per_dispatch": 4, "model": "CL4SRec"}, NotImplementedError),
     # it chooses JAX's PRNG implementation; the port draws from torch generators
     ({"rng_impl": "rbg"}, NotImplementedError),
     ({"precision": "fp16"}, ValueError),

@@ -143,6 +143,37 @@ def _jax_steps(root, cfg, data, model, shard, evaluate):
                 metrics=metrics)
 
 
+def jax_fused_steps(root, cfg, data=1, model=1, shard=False, n=4):
+    """One group of ``n`` steps of the JAX trainer's ``multi_train_step`` on
+    its first ``n`` batches of epoch 0, the step keys split from
+    PRNGKey(3): (initial params as the port's state_dict, the host batches,
+    each step's negatives, the losses, the final params as the port's)."""
+    with jax_restoring_plans():
+        plan = None
+        if data * model > 1:
+            plan = JaxMeshPlan(mesh=jax_create_mesh(data=data, model=model,
+                                                    devices=jax.devices()[: data * model]),
+                               shard_embedding=shard)
+        tr = JaxTrainer(copy.deepcopy(cfg), jax_prepare_datasets(copy.deepcopy(cfg), root=root),
+                        mesh_plan=plan)
+        tr.init_state(seed=7)
+        module = get_model_class(cfg["model"]["model"]).build(cfg, NUM_ITEMS)
+
+        def port(params):
+            return {k: v.numpy() for k, v in params_from_jax(
+                jax.tree_util.tree_map(np.asarray, jax.device_get(params)), module).items()}
+
+        init = port(tr.state.params)
+        batches = list(tr.train_data.get_loader(seed=0))[:n]
+        rngs = jax.random.split(jax.random.PRNGKey(3), n)
+        draws = [(jax_draws(tr, tr._device_batch(b, is_train=True), r)[0],)
+                 for b, r in zip(batches, rngs)]
+        state, losses = tr.multi_train_step(tr.state, tr._device_batch_stack(batches), rngs,
+                                            tr.batch_extras)
+        return dict(init=init, batches=batches, draws=draws,
+                    losses=np.asarray(losses).tolist(), params=port(state.params))
+
+
 def port_steps(tmp_path, setup, ref, data=1, model=1, shard=False):
     root, cfg = setup
     args = (cfg, root, data, model, shard, [ref["batch"]] * STEPS, [ref["neg"]] * STEPS,

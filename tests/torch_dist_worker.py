@@ -328,6 +328,99 @@ def meta_runs(rank, jobs):
     return [meta_steps(rank, *job) for job in jobs]
 
 
+def _fused_trainer(cfg, root, plan, spd, dropout, meta):
+    """A ``Trainer`` (seed 7) or ``MetaTrainer`` (seed 0) at
+    ``steps_per_dispatch`` ``spd`` and ``dropout``; a meta config's
+    sub-model takes both through ``_cli_overrides``."""
+    from dr4sr_tpu_torch.data.dataset import prepare_datasets
+    from dr4sr_tpu_torch.train.meta_trainer import MetaTrainer
+
+    cfg = copy.deepcopy(cfg)
+    for section in (cfg, cfg.get("_cli_overrides", {})) if meta else (cfg,):
+        section.setdefault("train", {})["steps_per_dispatch"] = spd
+        section.setdefault("model", {})["dropout_rate"] = dropout
+    if not meta:
+        return _trainer(cfg, root, plan, None)
+    tr = MetaTrainer(cfg, prepare_datasets(copy.deepcopy(cfg), root=root), device="cpu",
+                     config_dir=CONFIG_DIR, mesh_plan=plan)
+    tr.init_state(seed=0)
+    return tr
+
+
+def fused_group(rank, cfg, root, data, model, shard_embedding, ref, meta=False, epochs=2):
+    """``train.steps_per_dispatch`` on a data × model mesh (one process
+    when ``data · model`` is 1):
+
+    * ``n1``, ``n4``: a trainer at N = 1 and one at N = 4 take ``epochs``
+      epochs (dropout 0.1, their own draws): the epoch losses, the local
+      weights (and the meta parameters);
+    * ``group``: a trainer at N = 4 from ``ref``'s initial weights (and
+      meta parameters) takes ``ref``'s batches as one group through
+      ``fused_steps``, each step with ``ref``'s global draws cut to this
+      rank's rows: the losses, the full and local weights, the group's
+      collectives."""
+    from dr4sr_tpu_torch.parallel.collectives import COUNTER
+
+    plan = _plan(data, model, shard_embedding) if data * model > 1 else None
+    out = {}
+    for spd in (1, 4):
+        tr = _fused_trainer(cfg, root, plan, spd, 0.1, meta)
+        losses = [tr.training_epoch(e) for e in range(epochs)]
+        out[f"n{spd}"] = {
+            "losses": losses, "step": tr.step,
+            "local": {k: v.detach().numpy().copy() for k, v in tr.rec.module.state_dict().items()},
+            "meta": ({k: v.detach().numpy().copy() for k, v in tr.meta_params.items()}
+                     if meta else None)}
+    tr = _fused_trainer(cfg, root, plan, 4, 0.0, meta)
+    tr.set_params({k: torch.from_numpy(np.asarray(v)) for k, v in ref["init"].items()})
+    draws = iter(_rank_rows([tuple(torch.from_numpy(np.array(x)) for x in step)
+                             for step in ref["draws"]], tr.data_axis))
+    if meta:
+        mlp, tau = ref["meta_init"]
+        tr.load_meta({k: torch.from_numpy(np.asarray(v)) for k, v in mlp.items()}, tau)
+
+        def update(batch):
+            neg, noise = next(draws)
+            return tr._weighted_update(batch, neg_id=neg, noise=noise)
+    else:
+        def update(batch):
+            return tr._update(batch, neg_id=next(draws)[0])
+
+    COUNTER.reset()
+    losses = tr.fused_steps(ref["batches"], "weighted" if meta else "train", update)
+    out["group"] = {
+        "losses": losses.tolist(), "collectives": COUNTER.snapshot(),
+        "full": {k: v.numpy().copy() for k, v in tr.full_state_dict().items()},
+        "local": {k: v.detach().numpy().copy() for k, v in tr.rec.module.state_dict().items()}}
+    return out
+
+
+def fused_groups(rank, jobs):
+    """:func:`fused_group` for each of ``jobs`` (its arguments after the rank)."""
+    return [fused_group(rank, *args, **kwargs) for args, kwargs in jobs]
+
+
+def cli(rank, workdir, argv):
+    """``python -m dr4sr_tpu_torch.run`` with ``argv`` on this rank (the
+    process group joined already, as torchrun's would be), run from
+    ``workdir``: the test metrics it returns, and the trainer it made."""
+    from dr4sr_tpu_torch import quickstart, run
+
+    made = []
+    make = quickstart.make_trainer
+    quickstart.make_trainer = lambda *a, **k: made.append(make(*a, **k)) or made[-1]
+    cwd = os.getcwd()
+    os.chdir(workdir)
+    try:
+        metrics = run.main(argv)
+    finally:
+        os.chdir(cwd)
+        quickstart.make_trainer = make
+    tr = made[0]
+    return metrics, tr.steps_per_dispatch, tr.world_size, tr.step, \
+        {k: v.detach().numpy().copy() for k, v in tr.rec.module.state_dict().items()}
+
+
 def train_epochs(rank, cfg, root, data, model, shard_embedding, epochs):
     """``training_epoch`` for ``epochs`` epochs and one validation pass."""
     plan = _plan(data, model, shard_embedding) if data * model > 1 else None

@@ -24,6 +24,14 @@ share of every batch's lanes, the γ draws [max_len − 1, B] are drawn for
 the whole batch on every rank and sliced, and the token buffers are
 all-gathered, so every rank returns the same list, the one one process
 returns.
+
+Under a ``torch.profiler`` session the loops carry spans
+(``utils/spans.py``): each batch records ``regen.encode`` once (the
+encoder or ``decode_state``, the source mask, the caches and buffers),
+``regen.position`` once for each of its ``max_len - 1`` positions (the
+step, the pick, the buffer updates), and, in ``decode_dataset``,
+``regen.collect`` once (the all-gather, the copy back, the lanes' token
+lists).
 """
 
 from __future__ import annotations
@@ -39,6 +47,7 @@ from dr4sr_tpu_torch.ops.topk import top_k_stable
 from dr4sr_tpu_torch.parallel.collectives import all_gather
 from dr4sr_tpu_torch.parallel.mesh import DATA_AXIS, MeshPlan
 from dr4sr_tpu_torch.regen.generator import NEG, Generator
+from dr4sr_tpu_torch.utils.spans import span
 
 
 def _lane_draws(gamma, draws, generator, steps, b, device) -> Optional[torch.Tensor]:
@@ -101,20 +110,23 @@ def greedy_decode_batch(
 ) -> torch.Tensor:
     """Full-buffer greedy decode: each step reruns the decoder over the whole
     buffer. Token buffers [B, max_len] (SOS first, EOS-terminated, 0 after)."""
-    generator.eval()
-    b = src.shape[0]
-    memory_k = generator.conditioned_memory(generator.encode(src, causal=False))
-    src_pad = src == 0
-    in_src = _source_mask(src, generator.num_items + 2)
-    u = _lane_draws(gamma, draws, rng, max_len - 1, b, src.device)
-    buf, emitted, done = _start(src, generator, max_len)
-    rows = torch.arange(b, device=src.device)
+    with span("regen.encode"):
+        generator.eval()
+        b = src.shape[0]
+        memory_k = generator.conditioned_memory(generator.encode(src, causal=False))
+        src_pad = src == 0
+        in_src = _source_mask(src, generator.num_items + 2)
+        u = _lane_draws(gamma, draws, rng, max_len - 1, b, src.device)
+        buf, emitted, done = _start(src, generator, max_len)
+        rows = torch.arange(b, device=src.device)
     for i in range(max_len - 1):
-        logits = generator.decode_step(buf, memory_k, src_pad, condition, i)
-        nxt = _greedy_pick(logits, _allowed(in_src, emitted, u, gamma, i), done, generator.eos)
-        buf[:, i + 1] = nxt
-        emitted[rows, nxt] = True
-        done |= nxt == generator.eos
+        with span("regen.position"):
+            logits = generator.decode_step(buf, memory_k, src_pad, condition, i)
+            nxt = _greedy_pick(logits, _allowed(in_src, emitted, u, gamma, i), done,
+                               generator.eos)
+            buf[:, i + 1] = nxt
+            emitted[rows, nxt] = True
+            done |= nxt == generator.eos
     return buf
 
 
@@ -138,22 +150,25 @@ def greedy_decode_batch_cached(
     :func:`greedy_decode_batch`, but each step advances one position through
     per-layer self-attention caches, with the cross-attention k, v projected
     once. The encoder is the only attention through the kernels here."""
-    generator.eval()
-    b = src.shape[0]
-    mem_k, mem_v = generator.decode_state(src, condition)
-    memory_valid = src != 0
-    in_src = _source_mask(src, generator.num_items + 2)
-    u = _lane_draws(gamma, draws, rng, max_len - 1, b, src.device)
-    cache_k, cache_v = _caches(generator, b, max_len, mem_k)
-    buf, emitted, done = _start(src, generator, max_len)
-    rows = torch.arange(b, device=src.device)
+    with span("regen.encode"):
+        generator.eval()
+        b = src.shape[0]
+        mem_k, mem_v = generator.decode_state(src, condition)
+        memory_valid = src != 0
+        in_src = _source_mask(src, generator.num_items + 2)
+        u = _lane_draws(gamma, draws, rng, max_len - 1, b, src.device)
+        cache_k, cache_v = _caches(generator, b, max_len, mem_k)
+        buf, emitted, done = _start(src, generator, max_len)
+        rows = torch.arange(b, device=src.device)
     for i in range(max_len - 1):
-        logits = generator.cached_decode_step(buf[:, i], i, cache_k, cache_v, mem_k, mem_v,
-                                              memory_valid)
-        nxt = _greedy_pick(logits, _allowed(in_src, emitted, u, gamma, i), done, generator.eos)
-        buf[:, i + 1] = nxt
-        emitted[rows, nxt] = True
-        done |= nxt == generator.eos
+        with span("regen.position"):
+            logits = generator.cached_decode_step(buf[:, i], i, cache_k, cache_v, mem_k, mem_v,
+                                                  memory_valid)
+            nxt = _greedy_pick(logits, _allowed(in_src, emitted, u, gamma, i), done,
+                               generator.eos)
+            buf[:, i + 1] = nxt
+            emitted[rows, nxt] = True
+            done |= nxt == generator.eos
     return buf
 
 
@@ -174,44 +189,48 @@ def beam_decode_batch_cached(
     the best W and reorders the caches by parent beam; done beams carry
     their score on PAD, dead beams on EOS. ``beam_width=1`` gives greedy's
     tokens. Returns the best beam's buffer [B, max_len]."""
-    generator.eval()
-    b, w = src.shape[0], beam_width
-    vocab = generator.num_items + 2
-    nl, d = generator.num_layers, generator.embed_dim
-    mem_k, mem_v = generator.decode_state(src, condition)
-    mem_k = mem_k.repeat_interleave(w, dim=1)
-    mem_v = mem_v.repeat_interleave(w, dim=1)
-    memory_valid = (src != 0).repeat_interleave(w, dim=0)
-    in_src = _source_mask(src, vocab)[:, None]
-    u = _lane_draws(gamma, draws, rng, max_len - 1, b, src.device)
-    cache_k, cache_v = _caches(generator, b * w, max_len, mem_k)
-    buf, emitted, done = _start(src, generator, max_len, lanes=(w,))
-    # identical SOS prefixes: only beam 0 starts live
-    scores = torch.full((b, w), NEG, device=src.device)
-    scores[:, 0] = 0.0
-    rows = torch.arange(b, device=src.device)[:, None]
-    beams = torch.arange(w, device=src.device)[None, :]
+    with span("regen.encode"):
+        generator.eval()
+        b, w = src.shape[0], beam_width
+        vocab = generator.num_items + 2
+        nl, d = generator.num_layers, generator.embed_dim
+        mem_k, mem_v = generator.decode_state(src, condition)
+        mem_k = mem_k.repeat_interleave(w, dim=1)
+        mem_v = mem_v.repeat_interleave(w, dim=1)
+        memory_valid = (src != 0).repeat_interleave(w, dim=0)
+        in_src = _source_mask(src, vocab)[:, None]
+        u = _lane_draws(gamma, draws, rng, max_len - 1, b, src.device)
+        cache_k, cache_v = _caches(generator, b * w, max_len, mem_k)
+        buf, emitted, done = _start(src, generator, max_len, lanes=(w,))
+        # identical SOS prefixes: only beam 0 starts live
+        scores = torch.full((b, w), NEG, device=src.device)
+        scores[:, 0] = 0.0
+        rows = torch.arange(b, device=src.device)[:, None]
+        beams = torch.arange(w, device=src.device)[None, :]
     for i in range(max_len - 1):
-        logits = generator.cached_decode_step(buf[:, :, i].reshape(b * w), i, cache_k, cache_v,
-                                              mem_k, mem_v, memory_valid).reshape(b, w, vocab)
-        allowed = _allowed(in_src, emitted, u, gamma, i)
-        dead = ~allowed.any(dim=-1)
-        logp = F.log_softmax(torch.where(allowed, logits.float(), NEG), dim=-1)
-        cand = scores[..., None] + torch.where(allowed, logp, NEG)
-        forced_tok = torch.where(done, 0, generator.eos)
-        forced_cand = torch.where(F.one_hot(forced_tok, vocab).bool(), scores[..., None], NEG)
-        cand = torch.where((done | dead)[..., None], forced_cand, cand)
-        scores, top_idx = top_k_stable(cand.reshape(b, w * vocab), w)
-        parent = top_idx // vocab
-        nxt = top_idx % vocab
-        buf, emitted, done = buf[rows, parent], emitted[rows, parent], done[rows, parent]
-        cache_k = cache_k.reshape(nl, b, w, max_len, d)[:, rows, parent].reshape(
-            nl, b * w, max_len, d)
-        cache_v = cache_v.reshape(nl, b, w, max_len, d)[:, rows, parent].reshape(
-            nl, b * w, max_len, d)
-        buf[:, :, i + 1] = nxt
-        emitted[rows, beams, nxt] = True
-        done |= nxt == generator.eos
+        with span("regen.position"):
+            logits = generator.cached_decode_step(buf[:, :, i].reshape(b * w), i, cache_k,
+                                                  cache_v, mem_k, mem_v,
+                                                  memory_valid).reshape(b, w, vocab)
+            allowed = _allowed(in_src, emitted, u, gamma, i)
+            dead = ~allowed.any(dim=-1)
+            logp = F.log_softmax(torch.where(allowed, logits.float(), NEG), dim=-1)
+            cand = scores[..., None] + torch.where(allowed, logp, NEG)
+            forced_tok = torch.where(done, 0, generator.eos)
+            forced_cand = torch.where(F.one_hot(forced_tok, vocab).bool(), scores[..., None],
+                                      NEG)
+            cand = torch.where((done | dead)[..., None], forced_cand, cand)
+            scores, top_idx = top_k_stable(cand.reshape(b, w * vocab), w)
+            parent = top_idx // vocab
+            nxt = top_idx % vocab
+            buf, emitted, done = buf[rows, parent], emitted[rows, parent], done[rows, parent]
+            cache_k = cache_k.reshape(nl, b, w, max_len, d)[:, rows, parent].reshape(
+                nl, b * w, max_len, d)
+            cache_v = cache_v.reshape(nl, b, w, max_len, d)[:, rows, parent].reshape(
+                nl, b * w, max_len, d)
+            buf[:, :, i + 1] = nxt
+            emitted[rows, beams, nxt] = True
+            done |= nxt == generator.eos
     best = scores.argmax(dim=1)
     return buf[torch.arange(b, device=src.device), best]
 
@@ -277,11 +296,12 @@ def decode_dataset(
             else:
                 fn = greedy_decode_batch_cached if use_kv_cache else greedy_decode_batch
                 buf = fn(generator, src, condition, max_len, gamma, draws=draws)
-            buf = all_gather(buf, data, dim=0)
-            body = buf[:real, 1:].cpu().numpy()  # skip SOS
-            stop = (body == generator.eos) | (body == 0)
-            first = np.where(stop.any(1), stop.argmax(1), body.shape[1])
-            outputs.extend(body[i, : first[i]].tolist() for i in range(real))
+            with span("regen.collect"):
+                buf = all_gather(buf, data, dim=0)
+                body = buf[:real, 1:].cpu().numpy()  # skip SOS
+                stop = (body == generator.eos) | (body == 0)
+                first = np.where(stop.any(1), stop.argmax(1), body.shape[1])
+                outputs.extend(body[i, : first[i]].tolist() for i in range(real))
     return outputs
 
 

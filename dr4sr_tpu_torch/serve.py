@@ -21,6 +21,12 @@ without the msgpack package) and its ``.json`` sidecar's config. An item
 table with more rows than the module's (saved padded to a multiple of the
 ``model`` axis by an EP run) keeps its first rows, as ``convert.py`` keeps
 a JAX one's; a table with fewer rows is refused by ``load_state_dict``.
+
+Under a ``torch.profiler`` session each chunk of a request carries three
+spans (``utils/spans.py``): ``serve.batch`` (padding the histories and
+copying them to the device), ``serve.score`` (the encoder's forward and
+the masked top-k, enqueued) and ``serve.fetch`` (the copies back to
+numpy, which wait for the device).
 """
 
 from __future__ import annotations
@@ -36,6 +42,7 @@ from dr4sr_tpu_torch.models import get_model_class
 from dr4sr_tpu_torch.models.base import RecModel
 from dr4sr_tpu_torch.models.fmlp import pre_pad_batch
 from dr4sr_tpu_torch.train import checkpoint
+from dr4sr_tpu_torch.utils.spans import span
 
 
 def _unpadded(params: Mapping[str, torch.Tensor],
@@ -111,7 +118,9 @@ class Recommender:
     ) -> Tuple[np.ndarray, np.ndarray]:
         """Returns (items [N, k'] int64, scores [N, k'] float32) for each
         history, k' = min(k, num_items). (The JAX version sizes them by k and
-        fails when k exceeds the catalog.)"""
+        fails when k exceeds the catalog.) Each chunk of ``batch_size``
+        histories records ``serve.batch``, ``serve.score`` and
+        ``serve.fetch``, in that order, under a profiler."""
         k = min(k, self.rec.num_items)
         n = len(histories)
         L = self.max_seq_len
@@ -120,24 +129,27 @@ class Recommender:
         out_scores = np.zeros((n, k), np.float32)
         for start in range(0, n, b):
             chunk = histories[start : start + b]
-            seq = np.zeros((b, L), np.int64)
-            seqlen = np.ones(b, np.int64)
-            for i, h in enumerate(chunk):
-                h = list(h)[-L:]
-                seq[i, : len(h)] = h
-                seqlen[i] = max(len(h), 1)
-            seq_t = torch.from_numpy(seq).to(self.device)
-            batch = {
-                "in_item_id": seq_t,
-                "seqlen": torch.from_numpy(seqlen).to(self.device),
-                "user_hist": seq_t if exclude_seen
-                else torch.zeros((b, 1), dtype=torch.int64, device=self.device),
-            }
-            if self.pre_padding:  # the seen items stay as they are in user_hist
-                pre = pre_pad_batch({"in_item_id": seq, "seqlen": seqlen})["in_item_id"]
-                batch["in_item_id"] = torch.from_numpy(pre).to(self.device)
-            scores, items = self.rec.topk(batch, k, item_keep_mask=self.keep_mask)
+            with span("serve.batch"):
+                seq = np.zeros((b, L), np.int64)
+                seqlen = np.ones(b, np.int64)
+                for i, h in enumerate(chunk):
+                    h = list(h)[-L:]
+                    seq[i, : len(h)] = h
+                    seqlen[i] = max(len(h), 1)
+                seq_t = torch.from_numpy(seq).to(self.device)
+                batch = {
+                    "in_item_id": seq_t,
+                    "seqlen": torch.from_numpy(seqlen).to(self.device),
+                    "user_hist": seq_t if exclude_seen
+                    else torch.zeros((b, 1), dtype=torch.int64, device=self.device),
+                }
+                if self.pre_padding:  # the seen items stay as they are in user_hist
+                    pre = pre_pad_batch({"in_item_id": seq, "seqlen": seqlen})["in_item_id"]
+                    batch["in_item_id"] = torch.from_numpy(pre).to(self.device)
+            with span("serve.score"):
+                scores, items = self.rec.topk(batch, k, item_keep_mask=self.keep_mask)
             m = len(chunk)
-            out_items[start : start + m] = items[:m].cpu().numpy()
-            out_scores[start : start + m] = scores[:m].cpu().numpy()
+            with span("serve.fetch"):
+                out_items[start : start + m] = items[:m].cpu().numpy()
+                out_scores[start : start + m] = scores[:m].cpu().numpy()
         return out_items, out_scores

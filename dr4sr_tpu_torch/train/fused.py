@@ -44,6 +44,7 @@ import torch
 
 from dr4sr_tpu_torch.ops import attention
 from dr4sr_tpu_torch.parallel.collectives import COUNTER
+from dr4sr_tpu_torch.utils.spans import span
 
 Batch = Dict[str, torch.Tensor]
 HostBatch = Dict[str, np.ndarray]
@@ -174,7 +175,8 @@ class StepGraphs:
     # ------------------------------------------------------------------ steps
     def run(self, kind: str, step: StepFn, batches: List[HostBatch],
             extras: Batch) -> torch.Tensor:
-        n = self._stage(batches)
+        with span("train.stage"):
+            n = self._stage(batches)
         captured = self.graphs.get((kind, n))
         if captured is None:
             batches = step_batches(self.inputs, extras, n)

@@ -50,8 +50,12 @@ Observability, as the JAX trainer's: every epoch's metrics go to
 there (``utils/tbwriter.py``; step = epoch); ``train.profile_epoch = n``
 wraps epoch n's training (not its eval) in ``torch.profiler`` (CPU, and
 CUDA on the card) and writes one trace a rank into ``train.profile_dir``;
-every 10 epochs the analyzer's figure goes to ``figures/epoch_<n>.png``
-beside ``metrics.jsonl``. Process 0 alone writes the metrics, events and
+that trace, as any ``torch.profiler`` session's, carries the epoch's spans
+(``utils/spans.py``): ``train.load`` around each fetch of a group's batches
+from the loader, ``train.stage`` around a group's host work before its
+steps (see :meth:`Trainer.training_epoch`); every 10 epochs the
+analyzer's figure goes to ``figures/epoch_<n>.png`` beside
+``metrics.jsonl``. Process 0 alone writes the metrics, events and
 figures.
 
 Several devices (``mesh_plan``, a ``parallel.mesh.MeshPlan``; one process a
@@ -140,6 +144,7 @@ from dr4sr_tpu_torch.train.callbacks import Analyzer, EarlyStopping
 from dr4sr_tpu_torch.train.checkpoint import load_checkpoint
 from dr4sr_tpu_torch.train.fused import StepGraphs, capture_refusal, stack_batches, step_batches
 from dr4sr_tpu_torch.utils.env import refuse_rng_impl
+from dr4sr_tpu_torch.utils.spans import span
 from dr4sr_tpu_torch.utils.tbwriter import SummaryWriter
 
 logger = logging.getLogger("dr4sr_tpu_torch")
@@ -560,7 +565,9 @@ class Trainer:
         for _, run in itertools.groupby(batches, key=shape):
             run = list(run)
             if len(run) == 1:
-                self._loss_sum.add_(step(self.device_batch(run[0], is_train=True)))
+                with span("train.stage"):
+                    batch = self.device_batch(run[0], is_train=True)
+                self._loss_sum.add_(step(batch))
             else:
                 self.fused_steps(run, kind, update)
 
@@ -574,7 +581,8 @@ class Trainer:
         :meth:`host_shard`'s, as the per-step path's: under a mesh each is
         padded to the ``data`` multiple (as the JAX loop pads each) and cut to
         this rank's rows, with the ``global_*`` keys."""
-        hosts = [self.host_shard(b, is_train=True) for b in batches]
+        with span("train.stage"):
+            hosts = [self.host_shard(b, is_train=True) for b in batches]
 
         def step(batch):
             loss = update(batch)
@@ -586,9 +594,9 @@ class Trainer:
                 self._graphs = StepGraphs(self.generator, self.steps_per_dispatch)
             losses = self._graphs.run(kind, step, hosts, self.batch_extras)
         else:
-            stacked = stack_batches(hosts)
-            losses = torch.stack([step(b) for b in step_batches(stacked, self.batch_extras,
-                                                                len(batches))])
+            with span("train.stage"):
+                steps = step_batches(stack_batches(hosts), self.batch_extras, len(batches))
+            losses = torch.stack([step(b) for b in steps])
         self.step += len(batches)
         return losses
 
@@ -646,7 +654,13 @@ class Trainer:
 
     def training_epoch(self, nepoch: int) -> float:
         """One epoch in groups of ``train.steps_per_dispatch`` batches
-        (:meth:`train_group`); returns the mean loss."""
+        (:meth:`train_group`); returns the mean loss. Under a profiler an
+        epoch of G groups records ``train.load`` G + 1 times (the last
+        fetch finds the loader empty) and ``train.stage`` once for a group
+        of one batch (:meth:`device_batch`) and twice for a longer one
+        (:meth:`host_shard`, then the stack: :class:`fused.StepGraphs`'s
+        pinned buffers and copies on the card, ``stack_batches`` on the
+        CPU)."""
         if self.rec is None:
             raise RuntimeError("call init_state() first")
         self.refresh_state(nepoch)
@@ -654,7 +668,11 @@ class Trainer:
         self._loss_sum.zero_()
         n_steps = 0
         batches = self.train_batches(nepoch)
-        while group := list(itertools.islice(batches, self.steps_per_dispatch)):
+        while True:
+            with span("train.load"):
+                group = list(itertools.islice(batches, self.steps_per_dispatch))
+            if not group:
+                break
             self.train_group(group)
             n_steps += len(group)
         return float(self._loss_sum) / max(n_steps, 1)

@@ -42,7 +42,9 @@
   ``reference_attention()``.
 
 Layout is the JAX package's: q [B, H, Lq, Dh], k/v [B, H, Lk, Dh], mask
-[B, Lk].
+[B, Lk]. Every function also takes q and k wider than v (MLA's heads,
+DeepSeek-V2: q·kᵀ at Dqk 192, p·v at Dv 128; the kernels in bf16 only) and
+the caller's ``scale`` of q·kᵀ, 1/√Dqk when it is None.
 """
 
 from __future__ import annotations
@@ -51,6 +53,7 @@ import contextlib
 import contextvars
 import ctypes
 import functools
+import math
 from typing import Optional, Tuple
 
 import torch
@@ -59,6 +62,8 @@ from dr4sr_tpu_torch.ops import _build
 
 _NEG_INF = -1e30
 HEAD_DIMS = (16, 32, 64, 128)
+# (Dqk, Dv) pairs with Dqk != Dv that the kernels take, in bf16 only: MLA's
+WIDE_QK_HEAD_DIMS = ((192, 128),)
 
 
 def mha_reference(
@@ -67,12 +72,14 @@ def mha_reference(
     v: torch.Tensor,
     key_padding_mask: Optional[torch.Tensor] = None,
     causal: bool = True,
+    scale: Optional[float] = None,
 ) -> torch.Tensor:
-    """Plain attention. q,k,v: [B, H, L, Dh]; key_padding_mask: [B, Lk] True=pad."""
+    """Plain attention. q,k: [B, H, L, Dqk]; v: [B, H, L, Dv]; key_padding_mask:
+    [B, Lk] True=pad; ``scale`` of q·kᵀ (None: 1/√Dqk)."""
     prev = torch.get_float32_matmul_precision()
     torch.set_float32_matmul_precision("highest")  # f32 scores: TF32 off
     try:
-        p = _probs(*_masked_scores(q, k, key_padding_mask, causal))
+        p = _probs(*_masked_scores(q, k, key_padding_mask, causal, scale))
         out = torch.matmul(p, v.float())
     finally:
         torch.set_float32_matmul_precision(prev)
@@ -80,12 +87,15 @@ def mha_reference(
 
 
 def _masked_scores(
-    q: torch.Tensor, k: torch.Tensor, key_padding_mask: Optional[torch.Tensor], causal: bool
+    q: torch.Tensor, k: torch.Tensor, key_padding_mask: Optional[torch.Tensor], causal: bool,
+    scale: Optional[float] = None,
 ):
-    """f32 scores q·kᵀ/√Dh with the masks at -1e30, and the mask itself."""
+    """f32 scores q·kᵀ·scale (1/√Dqk by default) with the masks at -1e30,
+    and the mask itself."""
     lq, dh = q.shape[2], q.shape[3]
     lk = k.shape[2]
-    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * (1.0 / (dh**0.5))
+    scale = 1.0 / (dh**0.5) if scale is None else scale
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
     invalid = torch.zeros(1, 1, lq, lk, dtype=torch.bool, device=q.device)
     if causal:
         row = torch.arange(lq, device=q.device)[:, None]
@@ -109,6 +119,7 @@ def flash_attention_fwd_reference(
     v: torch.Tensor,
     key_padding_mask: Optional[torch.Tensor] = None,
     causal: bool = True,
+    scale: Optional[float] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(o, lse) as :func:`flash_attention_fwd` with ``want_lse`` returns
     them: o as :func:`mha_reference`, lse [B, H, Lq] f32 the log-sum-exp of
@@ -118,7 +129,7 @@ def flash_attention_fwd_reference(
     torch.set_float32_matmul_precision("highest")  # f32 scores: TF32 off
     try:
         with torch.no_grad():
-            s, invalid = _masked_scores(q, k, key_padding_mask, causal)
+            s, invalid = _masked_scores(q, k, key_padding_mask, causal, scale)
             o = torch.matmul(_probs(s, invalid), v.float())
             m = s.amax(dim=-1)
             l = torch.exp(s - m[..., None]).masked_fill(invalid, 0.0).sum(dim=-1)
@@ -137,6 +148,7 @@ def flash_attention_bwd_reference(
     key_padding_mask: Optional[torch.Tensor] = None,
     causal: bool = True,
     lse: Optional[torch.Tensor] = None,
+    scale: Optional[float] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(dq, dk, dv) as the TPU kernel computes them (``attention.py:221-296``):
     p over the full masked key row with masked entries forced to 0 after the
@@ -150,11 +162,11 @@ def flash_attention_bwd_reference(
     kernel takes it, in place of the softmax over ``k``'s keys; +inf gives
     p = 0."""
     bf16 = q.dtype == torch.bfloat16
-    scale = 1.0 / (q.shape[3] ** 0.5)
+    scale = 1.0 / (q.shape[3] ** 0.5) if scale is None else scale
     prev = torch.get_float32_matmul_precision()
     torch.set_float32_matmul_precision("highest")  # f32 products: TF32 off
     try:
-        s, invalid = _masked_scores(q, k, key_padding_mask, causal)
+        s, invalid = _masked_scores(q, k, key_padding_mask, causal, scale)
         if lse is None:
             p = _probs(s, invalid)
         else:
@@ -183,18 +195,30 @@ _BWD_ARGTYPES = (
     + [ctypes.c_int] * 7  # batch, heads, lq, lk, head_dim, causal, is_bf16
     + [ctypes.c_void_p]  # stream
 )
+# the entry points the wrappers call: the head sizes of q·kᵀ and of v, and the scale
+_SCALED_INTS = [ctypes.c_int] * 6 + [ctypes.c_float] + [ctypes.c_int] * 2
+_FWD_SCALED_ARGTYPES = (
+    [ctypes.c_void_p] * 6  # q, k, v, key_padding_mask, o, lse
+    + _SCALED_INTS  # batch, heads, lq, lk, head_dim_qk, head_dim_v, scale, causal, is_bf16
+    + [ctypes.c_void_p]  # stream
+)
+_BWD_SCALED_ARGTYPES = (
+    [ctypes.c_void_p] * 11  # q, k, v, o, dout, lse, key_padding_mask, dq, dk, dv, scratch
+    + _SCALED_INTS  # batch, heads, lq, lk, head_dim_qk, head_dim_v, scale, causal, is_bf16
+    + [ctypes.c_void_p]  # stream
+)
 
 
 @functools.cache
-def _entry(name: str, argtypes: tuple):
-    fn = getattr(_build.load(name), "dr4sr_" + name)
+def _entry(name: str, argtypes: tuple, symbol: Optional[str] = None):
+    fn = getattr(_build.load(name), "dr4sr_" + (symbol or name))
     fn.argtypes = list(argtypes)
     fn.restype = ctypes.c_int
     return fn
 
 
 def _check_inputs(q, k, v, key_padding_mask, name):
-    """Validate what the kernels take; return (b, h, lq, lk, dh)."""
+    """Validate what the kernels take; return (b, h, lq, lk, dqk, dv)."""
     if q.device.type != "cuda":
         raise ValueError(f"{name} takes CUDA tensors, got {q.device}")
     if q.dtype not in (torch.float32, torch.bfloat16):
@@ -202,10 +226,14 @@ def _check_inputs(q, k, v, key_padding_mask, name):
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("q, k, v must be [B, H, L, Dh]")
     b, h, lq, dh = q.shape
-    lk = k.shape[2]
-    if k.shape != (b, h, lk, dh) or v.shape != k.shape:
+    lk, dv = k.shape[2], v.shape[3]
+    if k.shape != (b, h, lk, dh) or v.shape != (b, h, lk, dv):
         raise ValueError(f"shape mismatch: q {tuple(q.shape)} k {tuple(k.shape)} v {tuple(v.shape)}")
-    if dh not in HEAD_DIMS:
+    if dh != dv:
+        if (dh, dv) not in WIDE_QK_HEAD_DIMS or q.dtype != torch.bfloat16:
+            raise ValueError(f"head dims q·kᵀ {dh}, v {dv}: the kernels take {WIDE_QK_HEAD_DIMS} "
+                             f"in bfloat16 only, or one head dim in {HEAD_DIMS}")
+    elif dh not in HEAD_DIMS:
         raise ValueError(f"head dim {dh} not in {HEAD_DIMS}")
     tensors = [q, k, v]
     if key_padding_mask is not None:
@@ -220,7 +248,13 @@ def _check_inputs(q, k, v, key_padding_mask, name):
         if not t.is_contiguous():
             raise ValueError(f"{name} takes contiguous tensors")
     _check_aligned((q, k, v), name)
-    return b, h, lq, lk, dh
+    return b, h, lq, lk, dh, dv
+
+
+def _kernel_scale(scale: Optional[float], dqk: int) -> float:
+    """The scale the kernels take: 1/√Dqk in double (rounded once to f32 by
+    ctypes, as the reference's scalar is) when ``scale`` is None."""
+    return 1.0 / math.sqrt(dqk) if scale is None else float(scale)
 
 
 def _check_aligned(tensors, name):
@@ -243,23 +277,25 @@ def flash_attention_fwd(
     key_padding_mask: Optional[torch.Tensor] = None,
     causal: bool = True,
     want_lse: bool = False,
+    scale: Optional[float] = None,
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Launch the forward kernel, without autograd: (o, lse), lse [B, H, Lq]
     f32 (the row log-sum-exp, +inf on a fully masked row) or None. q,k,v:
     [B, H, L, Dh] contiguous CUDA tensors of one dtype (f32 or bf16), Dh in
-    {16, 32, 64, 128}; mask [B, Lk] bool (True = pad) or None. Raises on
-    anything else."""
-    b, h, lq, lk, dh = _check_inputs(q, k, v, key_padding_mask, "flash_attention_fwd")
-    out = torch.empty_like(q)
+    {16, 32, 64, 128}, or bf16 q, k at Dqk 192 and v at Dv 128 (o [B, H, Lq,
+    Dv]); mask [B, Lk] bool (True = pad) or None; ``scale`` of q·kᵀ (None:
+    1/√Dqk). Raises on anything else."""
+    b, h, lq, lk, dh, dv = _check_inputs(q, k, v, key_padding_mask, "flash_attention_fwd")
+    out = q.new_empty(b, h, lq, dv)
     lse = torch.empty(b, h, lq, dtype=torch.float32, device=q.device) if want_lse else None
     if out.numel() == 0:
         return out, lse
-    fn = _entry("flash_attention_fwd", tuple(_FWD_ARGTYPES))
+    fn = _entry("flash_attention_fwd", tuple(_FWD_SCALED_ARGTYPES), "flash_attention_fwd_scaled")
     with torch.cuda.device(q.device):
         err = fn(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(key_padding_mask), out.data_ptr(),
-            _ptr(lse), b, h, lq, lk, dh, int(causal), int(q.dtype == torch.bfloat16),
-            torch.cuda.current_stream(q.device).cuda_stream,
+            _ptr(lse), b, h, lq, lk, dh, dv, _kernel_scale(scale, dh), int(causal),
+            int(q.dtype == torch.bfloat16), torch.cuda.current_stream(q.device).cuda_stream,
         )
     if err != 0:
         raise RuntimeError(f"flash_attention_fwd launch failed: cudaError_t {err}")
@@ -279,14 +315,16 @@ def flash_attention_bwd(
     lse: torch.Tensor,
     key_padding_mask: Optional[torch.Tensor] = None,
     causal: bool = True,
+    scale: Optional[float] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The CUDA flash-attention backward: (dq, dk, dv) in the input dtype.
-    q, k, v as for :func:`flash_attention_fwd`; o and do [B, H, Lq, Dh] of q's
-    dtype; lse [B, H, Lq] f32 from the forward. All contiguous CUDA
-    tensors. One launch when Lk ≤ 64, two otherwise; raises on anything it
-    does not take."""
-    b, h, lq, lk, dh = _check_inputs(q, k, v, key_padding_mask, "flash_attention_bwd")
-    for name, t, shape, dtype in (("o", o, q.shape, q.dtype), ("do", do, q.shape, q.dtype),
+    q, k, v and ``scale`` as for :func:`flash_attention_fwd`; o and do [B, H,
+    Lq, Dv] of q's dtype; lse [B, H, Lq] f32 from the forward. All contiguous
+    CUDA tensors. One launch when Lk ≤ 64, two otherwise; raises on anything
+    it does not take."""
+    b, h, lq, lk, dh, dh_v = _check_inputs(q, k, v, key_padding_mask, "flash_attention_bwd")
+    o_shape = (b, h, lq, dh_v)
+    for name, t, shape, dtype in (("o", o, o_shape, q.dtype), ("do", do, o_shape, q.dtype),
                                   ("lse", lse, (b, h, lq), torch.float32)):
         if t.shape != shape or t.dtype != dtype or t.device != q.device:
             raise ValueError(f"{name} must be {dtype} {tuple(shape)} on {q.device}, got "
@@ -299,13 +337,13 @@ def flash_attention_bwd(
         return dq, dk, dv
     # D = rowsum(dO ⊙ o) when the key axis is more than one tile
     scratch = torch.empty(b, h, lq, dtype=torch.float32, device=q.device)
-    fn = _entry("flash_attention_bwd", tuple(_BWD_ARGTYPES))
+    fn = _entry("flash_attention_bwd", tuple(_BWD_SCALED_ARGTYPES), "flash_attention_bwd_scaled")
     with torch.cuda.device(q.device):
         launched = fn(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
             lse.data_ptr(), _ptr(key_padding_mask), dq.data_ptr(), dk.data_ptr(),
-            dv.data_ptr(), scratch.data_ptr(), b, h, lq, lk, dh, int(causal),
-            int(q.dtype == torch.bfloat16),
+            dv.data_ptr(), scratch.data_ptr(), b, h, lq, lk, dh, dh_v, _kernel_scale(scale, dh),
+            int(causal), int(q.dtype == torch.bfloat16),
             torch.cuda.current_stream(q.device).cuda_stream,
         )
     if launched < 0:
@@ -324,13 +362,13 @@ class FlashAttention(torch.autograd.Function):
     :func:`flash_attention_bwd_reference`). No gradient for the mask."""
 
     @staticmethod
-    def forward(ctx, q, k, v, key_padding_mask, causal):
-        ctx.causal = causal
+    def forward(ctx, q, k, v, key_padding_mask, causal, scale=None):
+        ctx.causal, ctx.scale = causal, scale
         if q.device.type == "cpu":
-            o, lse = mha_reference(q, k, v, key_padding_mask, causal), None
+            o, lse = mha_reference(q, k, v, key_padding_mask, causal, scale), None
         else:
             o, lse = flash_attention_fwd(q, k, v, key_padding_mask, causal,
-                                         want_lse=any(ctx.needs_input_grad[:3]))
+                                         want_lse=any(ctx.needs_input_grad[:3]), scale=scale)
         ctx.save_for_backward(q, k, v, o, key_padding_mask, lse)
         return o
 
@@ -352,10 +390,12 @@ class FlashAttention(torch.autograd.Function):
         # the output before out_proj) or, under autocast, another dtype
         do = do.to(q.dtype).contiguous()
         if q.device.type == "cpu":
-            grads = flash_attention_bwd_reference(q, k, v, o, do, key_padding_mask, ctx.causal)
+            grads = flash_attention_bwd_reference(q, k, v, o, do, key_padding_mask, ctx.causal,
+                                                  scale=ctx.scale)
         else:
-            grads = flash_attention_bwd(q, k, v, o, do, lse, key_padding_mask, ctx.causal)
-        return (*grads, None, None)
+            grads = flash_attention_bwd(q, k, v, o, do, lse, key_padding_mask, ctx.causal,
+                                        scale=ctx.scale)
+        return (*grads, None, None, None)
 
 
 _PLAIN = contextvars.ContextVar("dr4sr_torch_plain_attention", default=False)
@@ -381,21 +421,26 @@ def multihead_attention(
     v: torch.Tensor,
     key_padding_mask: Optional[torch.Tensor] = None,
     causal: bool = True,
+    scale: Optional[float] = None,
 ) -> torch.Tensor:
     """With a context-parallel plan installed
     (``ring_attention.set_context_plan``) and Lq = Lk divisible by its axis
     size: the ring (``ops/ring_attention.py``), through the kernels on the
     card and their plain forms on the CPU. Otherwise CPU tensors, and any
     tensor inside :func:`plain_attention` → :func:`mha_reference`; CUDA
-    tensors → the kernels."""
+    tensors → the kernels. ``scale`` (None: 1/√Dqk) is the ring's only at
+    its default."""
     from dr4sr_tpu_torch.ops import ring_attention
 
     axis = ring_attention.get_context_plan()
     if (axis is not None and axis.size > 1 and q.shape[2] == k.shape[2]
             and q.shape[2] % axis.size == 0):
+        if scale is not None or v.shape[3] != q.shape[3]:
+            raise NotImplementedError("the context-parallel ring takes one head dim for q, k "
+                                      "and v and the scale 1/√Dh")
         return ring_attention.ring_attention(q, k, v, key_padding_mask, causal, axis=axis)
     if q.device.type == "cpu" or _PLAIN.get():
-        return mha_reference(q, k, v, key_padding_mask, causal)
+        return mha_reference(q, k, v, key_padding_mask, causal, scale)
     if q.device.type == "cuda":
-        return FlashAttention.apply(q, k, v, key_padding_mask, causal)
+        return FlashAttention.apply(q, k, v, key_padding_mask, causal, scale)
     raise ValueError(f"no attention route for device {q.device}")

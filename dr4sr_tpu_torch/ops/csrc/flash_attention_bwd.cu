@@ -17,7 +17,8 @@
 // past Lk are zero-filled in shared memory (0·garbage can be NaN) and their
 // p is 0. Causal masks key column > query row with no offset, also when
 // Lq != Lk. The gradients accumulate in f32 and are written in the input
-// dtype.
+// dtype. q, k (and dq, dk) may be wider than v, o and dO: MLA's Dqk 192 and
+// Dv 128, instantiated in bf16 only; scale is the caller's, as the forward's.
 //
 // Arithmetic, as the TPU kernel rounds:
 //   bf16: the five products in mma.m16n8k16 bf16 with f32 accumulation;
@@ -124,24 +125,29 @@ __device__ __forceinline__ void store_pair(__nv_bfloat16* p, float a, float b) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
 }
 
-template <typename T, int DH>
+// DQK: the head size of q and k; DV: that of v, o and dO (equal but for
+// MLA's 192/128, which only bf16 instantiates)
+template <typename T, int DQK, int DV>
 struct Cfg {
   static constexpr bool kBf16 = sizeof(T) == 2;
   // query rows per tile: 32, which halves the Sᵀ and dPᵀ registers, except
   // where 64 measured faster (bf16 Dh=64) or dS·K needs it (Dh=16)
-  static constexpr int kBlockQ = DH == 16 || (kBf16 && DH == 64) ? 64 : 32;
+  static constexpr int kBlockQ = DQK == 16 || (kBf16 && DQK == 64) ? 64 : 32;
   // f32 Dh=32 (the train shape): 128 registers, so 4 blocks an SM and the
   // 512 blocks of a train step in one wave
-  static constexpr int kMinBlocks = !kBf16 && DH == 32 ? 4 : 1;
-  static constexpr int kStride = DH + 16 / sizeof(T);         // shared row of Q, dO, K, V
+  static constexpr int kMinBlocks = !kBf16 && DQK == 32 ? 4 : 1;
+  static constexpr int kStride = DQK + 16 / sizeof(T);        // shared row of Q and K
+  static constexpr int kVStride = DV + 16 / sizeof(T);        // shared row of dO and V
   static constexpr int kDsStride = kBlockQ + 16 / sizeof(T);  // shared row of dSᵀ
-  static constexpr int kKVElems = kBlockK * kStride;
+  static constexpr int kKElems = kBlockK * kStride;
+  static constexpr int kVElems = kBlockK * kVStride;
   static constexpr int kQElems = kBlockQ * kStride;
+  static constexpr int kOElems = kBlockQ * kVStride;  // one dO tile
   static constexpr int kDsElems = kBlockK * kDsStride;
   // lse and D of two stages (f32), K, V, dSᵀ, then `stages` × (Q, dO)
   static constexpr size_t smem_bytes(int stages) {
     return 4 * kBlockQ * sizeof(float) +
-           (2 * kKVElems + kDsElems + stages * 2 * kQElems) * sizeof(T);
+           (kKElems + kVElems + kDsElems + stages * (kQElems + kOElems)) * sizeof(T);
   }
 };
 
@@ -181,28 +187,31 @@ __device__ __forceinline__ float row_dot(const T* o, const T* dout, size_t row_o
   return acc;
 }
 
-template <typename T, int DH, int MODE>
-__global__ void __launch_bounds__(kThreads, Cfg<T, DH>::kMinBlocks)
+template <typename T, int DQK, int DV, int MODE>
+__global__ void __launch_bounds__(kThreads, (Cfg<T, DQK, DV>::kMinBlocks))
 flash_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                  const T* __restrict__ o, const T* __restrict__ dout,
                  const float* __restrict__ lse, const float* __restrict__ drow,
                  const uint8_t* __restrict__ pad, T* __restrict__ dq, T* __restrict__ dk,
                  T* __restrict__ dv, int heads, int lq, int lk, int num_k_tiles, int causal,
                  float scale) {
-  using C = Cfg<T, DH>;
+  using C = Cfg<T, DQK, DV>;
   constexpr int kBQ = C::kBlockQ;
   constexpr int kStride = C::kStride;
+  constexpr int kVStride = C::kVStride;
   constexpr int kDsStride = C::kDsStride;
-  constexpr int kQGroups = kBQ / 8;  // n8 query groups of Sᵀ
-  constexpr int kDGroups = DH / 8;   // n8 column groups of dK, dV
+  constexpr int kQGroups = kBQ / 8;   // n8 query groups of Sᵀ
+  constexpr int kKGroups = DQK / 8;   // n8 column groups of dK (and dQ)
+  constexpr int kVGroups = DV / 8;    // n8 column groups of dV
   constexpr int kTPR = kThreads / kBQ;  // threads a row when the block computes D
+  static_assert(C::kBf16 || DQK == DV, "f32 takes one head size for q, k and v");
 
   extern __shared__ __align__(16) unsigned char smem[];
   float* stats = reinterpret_cast<float*>(smem);  // stage s: lse·log2 e at 2s, D at 2s+1
   T* ks = reinterpret_cast<T*>(stats + 4 * kBQ);
-  T* vs = ks + C::kKVElems;
-  T* dss = vs + C::kKVElems;    // dSᵀ [kBlockK][kDsStride]
-  T* qbuf = dss + C::kDsElems;  // stage s: Q at 2s, dO at 2s + 1
+  T* vs = ks + C::kKElems;
+  T* dss = vs + C::kVElems;     // dSᵀ [kBlockK][kDsStride]
+  T* qbuf = dss + C::kDsElems;  // stage s: Q, then dO
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -213,18 +222,20 @@ flash_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   const int bh = blockIdx.x / num_k_tiles;
   const int b = bh / heads;
   const int k0 = kt * kBlockK;
-  const size_t qoff = static_cast<size_t>(bh) * lq * DH;
-  const size_t koff = static_cast<size_t>(bh) * lk * DH;
+  const size_t qoff = static_cast<size_t>(bh) * lq * DQK;   // q, dq
+  const size_t ooff = static_cast<size_t>(bh) * lq * DV;    // o, dO
+  const size_t koff = static_cast<size_t>(bh) * lk * DQK;   // k, dk
+  const size_t voff = static_cast<size_t>(bh) * lk * DV;    // v, dv
   const size_t roff = static_cast<size_t>(bh) * lq;
   const int num_q_tiles = (lq + kBQ - 1) / kBQ;
   const int first = causal ? k0 / kBQ : 0;  // causal: rows before k0 see none of the keys
 
   auto load_q = [&](int tile) {
     const int q0 = tile * kBQ;
-    T* dst = qbuf + 2 * ((tile - first) & 1) * C::kQElems;
-    load_rows<T, DH, kBQ, kStride>(dst, q + qoff + static_cast<size_t>(q0) * DH, lq - q0, tid);
-    load_rows<T, DH, kBQ, kStride>(dst + C::kQElems, dout + qoff + static_cast<size_t>(q0) * DH,
-                                   lq - q0, tid);
+    T* dst = qbuf + ((tile - first) & 1) * (C::kQElems + C::kOElems);
+    load_rows<T, DQK, kBQ, kStride>(dst, q + qoff + static_cast<size_t>(q0) * DQK, lq - q0, tid);
+    load_rows<T, DV, kBQ, kVStride>(dst + C::kQElems, dout + ooff + static_cast<size_t>(q0) * DV,
+                                    lq - q0, tid);
   };
   // lse of row `tid` (threads tid < kBQ) and D of row tid (tid / kTPR when
   // the block computes it) of query tile `tile`; stored after the compute
@@ -238,7 +249,7 @@ flash_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
     }
     if (MODE == kDqDirect) {
       const int row = q0 + tid / kTPR;
-      d_v = row_dot<T, DH, kTPR>(o, dout, qoff + static_cast<size_t>(row) * DH, row < lq,
+      d_v = row_dot<T, DV, kTPR>(o, dout, ooff + static_cast<size_t>(row) * DV, row < lq,
                                  tid % kTPR);
     }
   };
@@ -253,10 +264,10 @@ flash_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   };
 
   if (first < num_q_tiles) {  // else no row sees the keys: dk = dv = 0
-    load_rows<T, DH, kBlockK, kStride>(ks, k + koff + static_cast<size_t>(k0) * DH, lk - k0,
-                                       tid);
-    load_rows<T, DH, kBlockK, kStride>(vs, v + koff + static_cast<size_t>(k0) * DH, lk - k0,
-                                       tid);
+    load_rows<T, DQK, kBlockK, kStride>(ks, k + koff + static_cast<size_t>(k0) * DQK, lk - k0,
+                                        tid);
+    load_rows<T, DV, kBlockK, kVStride>(vs, v + voff + static_cast<size_t>(k0) * DV, lk - k0,
+                                        tid);
     load_q(first);
     cp_async_commit();
     fetch_stats(first);
@@ -273,11 +284,16 @@ flash_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   }
   const float sl = scale * kLog2e;
 
-  float dk_acc[kDGroups][4], dv_acc[kDGroups][4];
+  float dk_acc[kKGroups][4], dv_acc[kVGroups][4];
 #pragma unroll
-  for (int n = 0; n < kDGroups; ++n) {
+  for (int n = 0; n < kKGroups; ++n) {
 #pragma unroll
-    for (int e = 0; e < 4; ++e) dk_acc[n][e] = dv_acc[n][e] = 0.f;
+    for (int e = 0; e < 4; ++e) dk_acc[n][e] = 0.f;
+  }
+#pragma unroll
+  for (int n = 0; n < kVGroups; ++n) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dv_acc[n][e] = 0.f;
   }
 
   for (int tile = first; tile < num_q_tiles; ++tile) {
@@ -291,7 +307,7 @@ flash_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
     }
     const int q0 = tile * kBQ;
     const int buf = (tile - first) & 1;
-    const T* qs = qbuf + 2 * buf * C::kQElems;
+    const T* qs = qbuf + buf * (C::kQElems + C::kOElems);
     const T* dos = qs + C::kQElems;
     const float* lse_s = stats + 2 * buf * kBQ;
     const float* d_s = lse_s + kBQ;
@@ -310,29 +326,34 @@ flash_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
     if (warp_live) {
       // Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ for the warp's 16 keys and the tile's rows
       if constexpr (C::kBf16) {
+        // the reduction runs over DQK for Sᵀ and over DV for dPᵀ
 #pragma unroll
-        for (int kk = 0; kk < DH / 16; ++kk) {
-          const int a_off = (wkey + (lane & 7) + ((lane >> 3) & 1) * 8) * kStride + kk * 16 +
-                            (lane >> 4) * 8;
+        for (int kk = 0; kk < (DQK > DV ? DQK : DV) / 16; ++kk) {
+          const int a_row = wkey + (lane & 7) + ((lane >> 3) & 1) * 8;
+          const int a_col = kk * 16 + (lane >> 4) * 8;
+          const int b_row = (lane & 7) + (lane >> 4) * 8;
+          const int b_col = kk * 16 + ((lane >> 3) & 1) * 8;
           uint32_t ak[4], av[4];
-          ldmatrix_x4(ak, ks + a_off);
-          ldmatrix_x4(av, vs + a_off);
+          if (kk < DQK / 16) ldmatrix_x4(ak, ks + a_row * kStride + a_col);
+          if (kk < DV / 16) ldmatrix_x4(av, vs + a_row * kVStride + a_col);
 #pragma unroll
           for (int j2 = 0; j2 < kQGroups / 2; ++j2) {
-            const int b_off = (j2 * 16 + (lane & 7) + (lane >> 4) * 8) * kStride + kk * 16 +
-                              ((lane >> 3) & 1) * 8;
             uint32_t bq[4], bo[4];  // b0, b1 of query groups 2·j2 and 2·j2 + 1
-            ldmatrix_x4(bq, qs + b_off);
-            ldmatrix_x4(bo, dos + b_off);
-            mma_bf16_16816(s[2 * j2], ak, bq[0], bq[1]);
-            mma_bf16_16816(s[2 * j2 + 1], ak, bq[2], bq[3]);
-            mma_bf16_16816(dp[2 * j2], av, bo[0], bo[1]);
-            mma_bf16_16816(dp[2 * j2 + 1], av, bo[2], bo[3]);
+            if (kk < DQK / 16) {
+              ldmatrix_x4(bq, qs + (j2 * 16 + b_row) * kStride + b_col);
+              mma_bf16_16816(s[2 * j2], ak, bq[0], bq[1]);
+              mma_bf16_16816(s[2 * j2 + 1], ak, bq[2], bq[3]);
+            }
+            if (kk < DV / 16) {
+              ldmatrix_x4(bo, dos + (j2 * 16 + b_row) * kVStride + b_col);
+              mma_bf16_16816(dp[2 * j2], av, bo[0], bo[1]);
+              mma_bf16_16816(dp[2 * j2 + 1], av, bo[2], bo[3]);
+            }
           }
         }
       } else {
 #pragma unroll
-        for (int kk = 0; kk < DH / 8; ++kk) {
+        for (int kk = 0; kk < DQK / 8; ++kk) {
           const int a_off = (wkey + g) * kStride + kk * 8 + t;
           uint32_t akb[4], aks[4], avb[4], avs[4];
           split_tf32(ks[a_off], akb[0], aks[0]);
@@ -388,16 +409,20 @@ flash_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
           const uint32_t ads[4] = {dsk[2 * kk][0], dsk[2 * kk][1], dsk[2 * kk + 1][0],
                                    dsk[2 * kk + 1][1]};
 #pragma unroll
-          for (int d2 = 0; d2 < DH / 16; ++d2) {
-            const int b_off = (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * kStride +
-                              d2 * 16 + (lane >> 4) * 8;
+          for (int d2 = 0; d2 < (DQK > DV ? DQK : DV) / 16; ++d2) {
+            const int b_row = kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
+            const int b_col = d2 * 16 + (lane >> 4) * 8;
             uint32_t bo[4], bq[4];  // b0, b1 of column groups 2·d2 and 2·d2 + 1
-            ldmatrix_x4_trans(bo, dos + b_off);
-            ldmatrix_x4_trans(bq, qs + b_off);
-            mma_bf16_16816(dv_acc[2 * d2], ap, bo[0], bo[1]);
-            mma_bf16_16816(dv_acc[2 * d2 + 1], ap, bo[2], bo[3]);
-            mma_bf16_16816(dk_acc[2 * d2], ads, bq[0], bq[1]);
-            mma_bf16_16816(dk_acc[2 * d2 + 1], ads, bq[2], bq[3]);
+            if (d2 < DV / 16) {
+              ldmatrix_x4_trans(bo, dos + b_row * kVStride + b_col);
+              mma_bf16_16816(dv_acc[2 * d2], ap, bo[0], bo[1]);
+              mma_bf16_16816(dv_acc[2 * d2 + 1], ap, bo[2], bo[3]);
+            }
+            if (d2 < DQK / 16) {
+              ldmatrix_x4_trans(bq, qs + b_row * kStride + b_col);
+              mma_bf16_16816(dk_acc[2 * d2], ads, bq[0], bq[1]);
+              mma_bf16_16816(dk_acc[2 * d2 + 1], ads, bq[2], bq[3]);
+            }
           }
         }
       } else {
@@ -407,7 +432,7 @@ flash_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
           split_c_as_a(s[j], apb, aps);
           split_c_as_a(dp[j], adb, ads);
 #pragma unroll
-          for (int n = 0; n < kDGroups; ++n) {
+          for (int n = 0; n < kKGroups; ++n) {
             const int b_off = (j * 8 + 2 * t) * kStride + n * 8 + g;  // row 2t, column g
             uint32_t b0b, b0s, b1b, b1s;
             split_rows_2t(dos + b_off, kStride, b0b, b1b, b0s, b1s);
@@ -437,8 +462,8 @@ flash_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 
       constexpr int kRowGroups = kBQ / 16;
       constexpr int kWarpsPerRows = kWarps / kRowGroups;
-      constexpr int kNG = kDGroups / kWarpsPerRows;  // column groups of dQ a warp owns
-      static_assert(kWarps % kRowGroups == 0 && kDGroups % kWarpsPerRows == 0, "dq split");
+      constexpr int kNG = kKGroups / kWarpsPerRows;  // column groups of dQ a warp owns
+      static_assert(kWarps % kRowGroups == 0 && kKGroups % kWarpsPerRows == 0, "dq split");
       const int rg = warp / kWarpsPerRows;
       const int n0 = (warp % kWarpsPerRows) * kNG;
       float acc[kNG][4];
@@ -483,7 +508,7 @@ flash_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
       for (int r = 0; r < 2; ++r) {
         const int row = q0 + rg * 16 + g + 8 * r;
         if (row >= lq) continue;
-        const size_t off = qoff + static_cast<size_t>(row) * DH + 2 * t;
+        const size_t off = qoff + static_cast<size_t>(row) * DQK + 2 * t;
 #pragma unroll
         for (int n = 0; n < kNG; ++n) {
           const int col = (n0 + n) * 8;
@@ -503,11 +528,14 @@ flash_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   for (int r = 0; r < 2; ++r) {
     const int key = key_lo + 8 * r;
     if (key >= lk) continue;
-    const size_t off = koff + static_cast<size_t>(key) * DH + 2 * t;
+    const size_t off = koff + static_cast<size_t>(key) * DQK + 2 * t;
+    const size_t v_off = voff + static_cast<size_t>(key) * DV + 2 * t;
 #pragma unroll
-    for (int n = 0; n < kDGroups; ++n) {
-      store_pair(dk + off + n * 8, dk_acc[n][2 * r] * scale, dk_acc[n][2 * r + 1] * scale);
-      store_pair(dv + off + n * 8, dv_acc[n][2 * r], dv_acc[n][2 * r + 1]);
+    for (int n = 0; n < (kKGroups > kVGroups ? kKGroups : kVGroups); ++n) {
+      if (n < kKGroups) {
+        store_pair(dk + off + n * 8, dk_acc[n][2 * r] * scale, dk_acc[n][2 * r + 1] * scale);
+      }
+      if (n < kVGroups) store_pair(dv + v_off + n * 8, dv_acc[n][2 * r], dv_acc[n][2 * r + 1]);
     }
   }
 }
@@ -536,7 +564,7 @@ flash_bwd_prep_kernel(const float* __restrict__ o, const float* __restrict__ dou
 // rows in registers and accumulates dQ += dS·K, with dS taken from its
 // C-fragments as the A operand. It also writes D = rowsum(dO ⊙ o) for the
 // main kernel.
-template <typename T, int DH>
+template <typename T, int DQK, int DV>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                     const T* __restrict__ o, const T* __restrict__ dout,
@@ -546,19 +574,23 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
   constexpr bool kBf16 = sizeof(T) == 2;
   constexpr int kBQ = 16 * kWarps;  // query rows per block
   constexpr int kBK = 32;           // keys per tile
-  constexpr int kStride = DH + 16 / sizeof(T);
+  constexpr int kStride = DQK + 16 / sizeof(T);  // shared row of Q and K
+  constexpr int kVStride = DV + 16 / sizeof(T);  // shared row of dO and V
   constexpr int kQElems = kBQ * kStride;
-  constexpr int kKVElems = kBK * kStride;
+  constexpr int kOElems = kBQ * kVStride;
+  constexpr int kKElems = kBK * kStride;
+  constexpr int kStageElems = kKElems + kBK * kVStride;  // one stage: K, then V
   constexpr int kNGroups = kBK / 8;  // n8 key groups of a score tile
-  constexpr int kDGroups = DH / 8;   // n8 column groups of dQ
+  constexpr int kDGroups = DQK / 8;  // n8 column groups of dQ
   constexpr int kTPR = kThreads / kBQ;
+  static_assert(kBf16 || DQK == DV, "f32 takes one head size for q, k and v");
 
   extern __shared__ __align__(16) unsigned char smem[];
   float* stats = reinterpret_cast<float*>(smem);  // lse·log2 e [kBQ], then D [kBQ]
   uint8_t* flags = reinterpret_cast<uint8_t*>(stats + 2 * kBQ);  // [2][kBK]: key valid
   T* qs = reinterpret_cast<T*>(flags + 2 * kBK);
   T* dos = qs + kQElems;
-  T* kv = dos + kQElems;  // stage s: K at 2s, V at 2s + 1
+  T* kv = dos + kOElems;  // stage s: K, then V
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -569,27 +601,28 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
   const int bh = blockIdx.x / num_q_tiles;
   const int b = bh / heads;
   const int q0 = qt * kBQ;
-  const size_t qoff = (static_cast<size_t>(bh) * lq + q0) * DH;
-  const T* kg = k + static_cast<size_t>(bh) * lk * DH;
-  const T* vg = v + static_cast<size_t>(bh) * lk * DH;
+  const size_t qoff = (static_cast<size_t>(bh) * lq + q0) * DQK;  // q, dq
+  const size_t ooff = (static_cast<size_t>(bh) * lq + q0) * DV;   // o, dO
+  const T* kg = k + static_cast<size_t>(bh) * lk * DQK;
+  const T* vg = v + static_cast<size_t>(bh) * lk * DV;
 
   int num_tiles = (lk + kBK - 1) / kBK;
   if (causal) num_tiles = min(num_tiles, (min(q0 + kBQ, lq) - 1) / kBK + 1);
 
   auto load_kv = [&](int tile) {
     const int k0 = tile * kBK;
-    const size_t off = static_cast<size_t>(k0) * DH;
-    T* dst = kv + 2 * (tile & 1) * kKVElems;
-    load_rows<T, DH, kBK, kStride>(dst, kg + off, lk - k0, tid);
-    load_rows<T, DH, kBK, kStride>(dst + kKVElems, vg + off, lk - k0, tid);
+    T* dst = kv + (tile & 1) * kStageElems;
+    load_rows<T, DQK, kBK, kStride>(dst, kg + static_cast<size_t>(k0) * DQK, lk - k0, tid);
+    load_rows<T, DV, kBK, kVStride>(dst + kKElems, vg + static_cast<size_t>(k0) * DV, lk - k0,
+                                    tid);
   };
   auto key_flag = [&](int tile) -> uint8_t {  // threads tid < kBK
     const int key = tile * kBK + tid;
     return key < lk && (pad == nullptr || pad[static_cast<size_t>(b) * lk + key] == 0);
   };
 
-  load_rows<T, DH, kBQ, kStride>(qs, q + qoff, lq - q0, tid);
-  load_rows<T, DH, kBQ, kStride>(dos, dout + qoff, lq - q0, tid);
+  load_rows<T, DQK, kBQ, kStride>(qs, q + qoff, lq - q0, tid);
+  load_rows<T, DV, kBQ, kVStride>(dos, dout + ooff, lq - q0, tid);
   if (num_tiles > 0) {
     load_kv(0);
     if (tid < kBK) flags[tid] = key_flag(0);
@@ -598,7 +631,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
   {
     const int r = tid / kTPR;
     const int row = q0 + r;
-    const float d = row_dot<T, DH, kTPR>(o, dout, qoff + static_cast<size_t>(r) * DH, row < lq,
+    const float d = row_dot<T, DV, kTPR>(o, dout, ooff + static_cast<size_t>(r) * DV, row < lq,
                                          tid % kTPR);
     if (tid % kTPR == 0) {
       stats[kBQ + r] = d;
@@ -635,8 +668,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
     const int k0 = tile * kBK;
     if (warp_live && !(causal && k0 > warp_last)) {  // warp-uniform
       const int buf = tile & 1;
-      const T* ks = kv + (2 * buf) * kKVElems;
-      const T* vs = kv + (2 * buf + 1) * kKVElems;
+      const T* ks = kv + buf * kStageElems;
+      const T* vs = ks + kKElems;
       const uint8_t* fl = flags + buf * kBK;
 
       // S = Q·Kᵀ and dP = dO·Vᵀ for the warp's 16 rows and the tile's keys
@@ -647,29 +680,34 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
         for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
       }
       if constexpr (kBf16) {
+        // the reduction runs over DQK for S and over DV for dP
 #pragma unroll
-        for (int kk = 0; kk < DH / 16; ++kk) {
-          const int a_off = (wrow + (lane & 7) + ((lane >> 3) & 1) * 8) * kStride + kk * 16 +
-                            (lane >> 4) * 8;
+        for (int kk = 0; kk < (DQK > DV ? DQK : DV) / 16; ++kk) {
+          const int a_row = wrow + (lane & 7) + ((lane >> 3) & 1) * 8;
+          const int a_col = kk * 16 + (lane >> 4) * 8;
+          const int b_row = (lane & 7) + (lane >> 4) * 8;
+          const int b_col = kk * 16 + ((lane >> 3) & 1) * 8;
           uint32_t aq[4], ao[4];
-          ldmatrix_x4(aq, qs + a_off);
-          ldmatrix_x4(ao, dos + a_off);
+          if (kk < DQK / 16) ldmatrix_x4(aq, qs + a_row * kStride + a_col);
+          if (kk < DV / 16) ldmatrix_x4(ao, dos + a_row * kVStride + a_col);
 #pragma unroll
           for (int j2 = 0; j2 < kNGroups / 2; ++j2) {
-            const int b_off = (j2 * 16 + (lane & 7) + (lane >> 4) * 8) * kStride + kk * 16 +
-                              ((lane >> 3) & 1) * 8;
             uint32_t bk[4], bv[4];
-            ldmatrix_x4(bk, ks + b_off);
-            ldmatrix_x4(bv, vs + b_off);
-            mma_bf16_16816(s[2 * j2], aq, bk[0], bk[1]);
-            mma_bf16_16816(s[2 * j2 + 1], aq, bk[2], bk[3]);
-            mma_bf16_16816(dp[2 * j2], ao, bv[0], bv[1]);
-            mma_bf16_16816(dp[2 * j2 + 1], ao, bv[2], bv[3]);
+            if (kk < DQK / 16) {
+              ldmatrix_x4(bk, ks + (j2 * 16 + b_row) * kStride + b_col);
+              mma_bf16_16816(s[2 * j2], aq, bk[0], bk[1]);
+              mma_bf16_16816(s[2 * j2 + 1], aq, bk[2], bk[3]);
+            }
+            if (kk < DV / 16) {
+              ldmatrix_x4(bv, vs + (j2 * 16 + b_row) * kVStride + b_col);
+              mma_bf16_16816(dp[2 * j2], ao, bv[0], bv[1]);
+              mma_bf16_16816(dp[2 * j2 + 1], ao, bv[2], bv[3]);
+            }
           }
         }
       } else {
 #pragma unroll
-        for (int kk = 0; kk < DH / 8; ++kk) {
+        for (int kk = 0; kk < DQK / 8; ++kk) {
           const int a_off = (wrow + g) * kStride + kk * 8 + t;
           uint32_t aqb[4], aqs[4], aob[4], aos[4];
           split_tf32(qs[a_off], aqb[0], aqs[0]);
@@ -718,7 +756,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
                                  pack_bf16x2(dp[2 * kk + 1][0], dp[2 * kk + 1][1]),
                                  pack_bf16x2(dp[2 * kk + 1][2], dp[2 * kk + 1][3])};
 #pragma unroll
-          for (int d2 = 0; d2 < DH / 16; ++d2) {
+          for (int d2 = 0; d2 < DQK / 16; ++d2) {
             uint32_t bk[4];
             ldmatrix_x4_trans(bk, ks + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * kStride +
                                       d2 * 16 + (lane >> 4) * 8);
@@ -749,7 +787,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
   for (int r = 0; r < 2; ++r) {
     const int row = row_lo + 8 * r;
     if (row >= lq) continue;
-    T* out = dq + (static_cast<size_t>(bh) * lq + row) * DH + 2 * t;
+    T* out = dq + (static_cast<size_t>(bh) * lq + row) * DQK + 2 * t;
 #pragma unroll
     for (int n = 0; n < kDGroups; ++n) {
       store_pair(out + n * 8, acc[n][2 * r] * scale, acc[n][2 * r + 1] * scale);
@@ -766,20 +804,21 @@ cudaError_t allow_smem(Kernel kernel, size_t smem) {
                               static_cast<int>(smem));
 }
 
-template <typename T, int DH>
+template <typename T, int DQK, int DV>
 cudaError_t launch(const void* q_, const void* k_, const void* v_, const void* o_,
                    const void* dout_, const float* lse, const void* pad_, void* dq_, void* dk_,
                    void* dv_, float* scratch, int batch, int heads, int lq, int lk, int causal,
                    float scale, cudaStream_t stream, int* launched) {
-  using C = Cfg<T, DH>;
+  using C = Cfg<T, DQK, DV>;
   const long long bh = static_cast<long long>(batch) * heads;
   if (bh == 0) return cudaSuccess;
   if (lq == 0 || lk == 0) {  // no rows, or no keys (every row fully masked): zeros
-    const size_t q_bytes = static_cast<size_t>(bh) * lq * DH * sizeof(T);
-    const size_t k_bytes = static_cast<size_t>(bh) * lk * DH * sizeof(T);
+    const size_t q_bytes = static_cast<size_t>(bh) * lq * DQK * sizeof(T);
+    const size_t k_bytes = static_cast<size_t>(bh) * lk * DQK * sizeof(T);
+    const size_t v_bytes = static_cast<size_t>(bh) * lk * DV * sizeof(T);
     cudaError_t err = cudaMemsetAsync(dq_, 0, q_bytes, stream);
     if (err == cudaSuccess) err = cudaMemsetAsync(dk_, 0, k_bytes, stream);
-    if (err == cudaSuccess) err = cudaMemsetAsync(dv_, 0, k_bytes, stream);
+    if (err == cudaSuccess) err = cudaMemsetAsync(dv_, 0, v_bytes, stream);
     return err;
   }
   const T* q = static_cast<const T*>(q_);
@@ -799,7 +838,7 @@ cudaError_t launch(const void* q_, const void* k_, const void* v_, const void* o
   const size_t smem = C::smem_bytes(num_q_tiles > 1 ? 2 : 1);
   cudaError_t err;
   if (num_k_tiles == 1) {
-    auto kernel = flash_bwd_kernel<T, DH, kDqDirect>;
+    auto kernel = flash_bwd_kernel<T, DQK, DV, kDqDirect>;
     if ((err = allow_smem(kernel, smem)) != cudaSuccess) return err;
     kernel<<<static_cast<unsigned>(blocks), kThreads, smem, stream>>>(
         q, k, v, o, dout, lse, nullptr, pad, dq, dk, dv, heads, lq, lk, num_k_tiles, causal,
@@ -814,11 +853,12 @@ cudaError_t launch(const void* q_, const void* k_, const void* v_, const void* o
     const long long rows = bh * lq;
     const long long prep_blocks = (rows * 4 + kThreads - 1) / kThreads;
     if (prep_blocks > INT_MAX) return cudaErrorInvalidConfiguration;
-    auto prep = flash_bwd_prep_kernel<DH>;
+    static_assert(DQK == DV, "f32 takes one head size for q, k and v");
+    auto prep = flash_bwd_prep_kernel<DQK>;
     prep<<<static_cast<unsigned>(prep_blocks), kThreads, 0, stream>>>(o, dout, drow, dq, rows);
     ++*launched;
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
-    auto kernel = flash_bwd_kernel<T, DH, kDqAtomic>;
+    auto kernel = flash_bwd_kernel<T, DQK, DV, kDqAtomic>;
     if ((err = allow_smem(kernel, smem)) != cudaSuccess) return err;
     kernel<<<static_cast<unsigned>(blocks), kThreads, smem, stream>>>(
         q, k, v, o, dout, lse, drow, pad, dq, dk, dv, heads, lq, lk, num_k_tiles, causal, scale);
@@ -826,19 +866,20 @@ cudaError_t launch(const void* q_, const void* k_, const void* v_, const void* o
     return cudaGetLastError();
   } else {
     constexpr int kDqBQ = 16 * kWarps, kDqBK = 32;
-    constexpr int kDqStride = DH + 16 / sizeof(T);
+    constexpr int kDqStride = DQK + 16 / sizeof(T), kDqVStride = DV + 16 / sizeof(T);
     const int dq_tiles = (lq + kDqBQ - 1) / kDqBQ;
     const long long dq_blocks = bh * dq_tiles;
     if (dq_blocks > INT_MAX) return cudaErrorInvalidConfiguration;
+    // lse and D, the key flags of two stages, Q, dO, then two stages of (K, V)
     const size_t dq_smem = 2 * kDqBQ * sizeof(float) + 2 * kDqBK +
-                           (2 * kDqBQ + 2 * 2 * kDqBK) * kDqStride * sizeof(T);
-    auto dq_kernel = flash_bwd_dq_kernel<T, DH>;
+                           (kDqBQ + 2 * kDqBK) * (kDqStride + kDqVStride) * sizeof(T);
+    auto dq_kernel = flash_bwd_dq_kernel<T, DQK, DV>;
     if ((err = allow_smem(dq_kernel, dq_smem)) != cudaSuccess) return err;
     dq_kernel<<<static_cast<unsigned>(dq_blocks), kThreads, dq_smem, stream>>>(
         q, k, v, o, dout, lse, pad, dq, drow, heads, lq, lk, dq_tiles, causal, scale);
     ++*launched;
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
-    auto kernel = flash_bwd_kernel<T, DH, kDqSeparate>;
+    auto kernel = flash_bwd_kernel<T, DQK, DV, kDqSeparate>;
     if ((err = allow_smem(kernel, smem)) != cudaSuccess) return err;
     kernel<<<static_cast<unsigned>(blocks), kThreads, smem, stream>>>(
         q, k, v, o, dout, lse, drow, pad, nullptr, dk, dv, heads, lq, lk, num_k_tiles, causal,
@@ -849,57 +890,80 @@ cudaError_t launch(const void* q_, const void* k_, const void* v_, const void* o
 }
 
 template <typename T>
-cudaError_t dispatch_dim(int head_dim, const void* q, const void* k, const void* v,
+cudaError_t dispatch_dim(int dqk, int dv, const void* q, const void* k, const void* v,
                          const void* o, const void* dout, const float* lse, const void* pad,
-                         void* dq, void* dk, void* dv, float* scratch, int batch, int heads,
+                         void* dq, void* dk, void* dv_, float* scratch, int batch, int heads,
                          int lq, int lk, int causal, float scale, cudaStream_t stream,
                          int* launched) {
-  switch (head_dim) {
-    case 16:
-      return launch<T, 16>(q, k, v, o, dout, lse, pad, dq, dk, dv, scratch, batch, heads, lq, lk,
-                           causal, scale, stream, launched);
-    case 32:
-      return launch<T, 32>(q, k, v, o, dout, lse, pad, dq, dk, dv, scratch, batch, heads, lq, lk,
-                           causal, scale, stream, launched);
-    case 64:
-      return launch<T, 64>(q, k, v, o, dout, lse, pad, dq, dk, dv, scratch, batch, heads, lq, lk,
-                           causal, scale, stream, launched);
-    case 128:
-      return launch<T, 128>(q, k, v, o, dout, lse, pad, dq, dk, dv, scratch, batch, heads, lq,
-                            lk, causal, scale, stream, launched);
-    default:
-      return cudaErrorInvalidValue;
+  if (dqk == dv) {
+    switch (dqk) {
+      case 16:
+        return launch<T, 16, 16>(q, k, v, o, dout, lse, pad, dq, dk, dv_, scratch, batch, heads,
+                                 lq, lk, causal, scale, stream, launched);
+      case 32:
+        return launch<T, 32, 32>(q, k, v, o, dout, lse, pad, dq, dk, dv_, scratch, batch, heads,
+                                 lq, lk, causal, scale, stream, launched);
+      case 64:
+        return launch<T, 64, 64>(q, k, v, o, dout, lse, pad, dq, dk, dv_, scratch, batch, heads,
+                                 lq, lk, causal, scale, stream, launched);
+      case 128:
+        return launch<T, 128, 128>(q, k, v, o, dout, lse, pad, dq, dk, dv_, scratch, batch,
+                                   heads, lq, lk, causal, scale, stream, launched);
+      default:
+        return cudaErrorInvalidValue;
+    }
   }
+  if constexpr (sizeof(T) == 2) {  // MLA: q·kᵀ at 192 (128 + a 64-wide rope part), p·v at 128
+    if (dqk == 192 && dv == 128) {
+      return launch<T, 192, 128>(q, k, v, o, dout, lse, pad, dq, dk, dv_, scratch, batch, heads,
+                                 lq, lk, causal, scale, stream, launched);
+    }
+  }
+  return cudaErrorInvalidValue;
 }
-
 
 }  // namespace
 
-// q/o/dout/dq [B,H,Lq,Dh], k/v/dk/dv [B,H,Lk,Dh], all contiguous and 16-byte
-// aligned, f32 (is_bf16 = 0) or bf16 (is_bf16 = 1); lse [B,H,Lq] f32 from
-// the forward; key_padding_mask [B,Lk] bytes (nonzero = pad) or null;
-// scratch [B,H,Lq] f32, which holds D when Lk > 64 (untouched, and may be
-// null, otherwise). Launches the kernels on `stream` without synchronising
-// and returns how many kernels of this library it launched (0 when there is
-// nothing to compute), or minus the first launch error (cudaError_t).
+// q/dq [B,H,Lq,Dqk], o/dout [B,H,Lq,Dv], k/dk [B,H,Lk,Dqk], v/dv [B,H,Lk,Dv],
+// all contiguous and 16-byte aligned, f32 (is_bf16 = 0) or bf16 (is_bf16 =
+// 1); Dqk = Dv in {16, 32, 64, 128}, or (bf16 only) Dqk 192 and Dv 128; lse
+// [B,H,Lq] f32 from the forward; key_padding_mask [B,Lk] bytes (nonzero =
+// pad) or null; scratch [B,H,Lq] f32, which holds D when Lk > 64 (untouched,
+// and may be null, otherwise); `scale` as the forward took it. Launches the
+// kernels on `stream` without synchronising and returns how many kernels of
+// this library it launched (0 when there is nothing to compute), or minus
+// the first launch error (cudaError_t).
+extern "C" int dr4sr_flash_attention_bwd_scaled(const void* q, const void* k, const void* v,
+                                                const void* o, const void* dout, const void* lse,
+                                                const void* key_padding_mask, void* dq, void* dk,
+                                                void* dv, void* scratch, int batch, int heads,
+                                                int lq, int lk, int head_dim_qk, int head_dim_v,
+                                                float scale, int causal, int is_bf16,
+                                                void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* lse_f = static_cast<const float*>(lse);
+  float* scratch_f = static_cast<float*>(scratch);
+  int launched = 0;
+  const cudaError_t err =
+      is_bf16 ? dispatch_dim<__nv_bfloat16>(head_dim_qk, head_dim_v, q, k, v, o, dout, lse_f,
+                                             key_padding_mask, dq, dk, dv, scratch_f, batch,
+                                             heads, lq, lk, causal, scale, s, &launched)
+              : dispatch_dim<float>(head_dim_qk, head_dim_v, q, k, v, o, dout, lse_f,
+                                    key_padding_mask, dq, dk, dv, scratch_f, batch, heads, lq, lk,
+                                    causal, scale, s, &launched);
+  return err == cudaSuccess ? launched : -static_cast<int>(err);
+}
+
+// The same for one head size Dh of q, k and v and the scale 1/√Dh, computed
+// as the reference does: in double, rounded once to f32.
 extern "C" int dr4sr_flash_attention_bwd(const void* q, const void* k, const void* v,
                                          const void* o, const void* dout, const void* lse,
                                          const void* key_padding_mask, void* dq, void* dk,
                                          void* dv, void* scratch, int batch, int heads, int lq,
                                          int lk, int head_dim, int causal, int is_bf16,
                                          void* stream) {
-  // the reference computes 1/√Dh in double and rounds it once to f32
   const float scale = static_cast<float>(1.0 / std::sqrt(static_cast<double>(head_dim)));
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* lse_f = static_cast<const float*>(lse);
-  float* scratch_f = static_cast<float*>(scratch);
-  int launched = 0;
-  const cudaError_t err =
-      is_bf16 ? dispatch_dim<__nv_bfloat16>(head_dim, q, k, v, o, dout, lse_f, key_padding_mask,
-                                             dq, dk, dv, scratch_f, batch, heads, lq, lk, causal,
-                                             scale, s, &launched)
-              : dispatch_dim<float>(head_dim, q, k, v, o, dout, lse_f, key_padding_mask, dq, dk,
-                                    dv, scratch_f, batch, heads, lq, lk, causal, scale, s,
-                                    &launched);
-  return err == cudaSuccess ? launched : -static_cast<int>(err);
+  return dr4sr_flash_attention_bwd_scaled(q, k, v, o, dout, lse, key_padding_mask, dq, dk, dv,
+                                          scratch, batch, heads, lq, lk, head_dim, head_dim,
+                                          scale, causal, is_bf16, stream);
 }

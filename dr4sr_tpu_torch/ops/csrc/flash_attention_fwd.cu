@@ -5,8 +5,11 @@
 // Computes, for q [B,H,Lq,Dh], k/v [B,H,Lk,Dh] and a key-padding mask
 // [B,Lk] (nonzero = pad):
 //
-//     o = softmax(q·kᵀ/√Dh, padded keys and (if causal) col > row masked)·v
+//     o = softmax(q·kᵀ·scale, padded keys and (if causal) col > row masked)·v
 //
+// with the caller's scale (1/√Dh for the TPU kernel's models). q and k may
+// be wider than v: MLA's heads (DeepSeek-V2, arXiv:2405.04434) take q·kᵀ at
+// Dqk 192 and p·v at Dv 128, instantiated in bf16 only.
 // with the TPU kernel's semantics: masked scores are -1e30 and masked p is
 // forced to 0 after the exp; the softmax is an online one over key tiles
 // (running max m, rescale α, denominator l); the output is acc / max(l,
@@ -71,16 +74,21 @@ constexpr int kBlockQ = 16 * kWarps;  // query rows per block, 16 per warp
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;  // e^x = 2^(x·log2 e), one MUFU.EX2
 
-template <typename T, int DH>
+// DQK: the head size of q and k; DV: that of v and o (equal but for MLA's
+// 192/128, which only bf16 instantiates)
+template <typename T, int DQK, int DV>
 struct Cfg {
   static constexpr bool kBf16 = sizeof(T) == 2;
-  static constexpr int kBlockK = 32;                    // keys per tile
-  static constexpr int kStride = DH + 16 / sizeof(T);  // shared row, in elements
+  static constexpr int kBlockK = 32;                     // keys per tile
+  static constexpr int kStride = DQK + 16 / sizeof(T);  // shared row of Q and K, in elements
+  static constexpr int kVStride = DV + 16 / sizeof(T);  // shared row of V
   static constexpr int kQElems = kBlockQ * kStride;
-  static constexpr int kKVElems = kBlockK * kStride;   // one K or V buffer
+  static constexpr int kKElems = kBlockK * kStride;     // one K buffer
+  static constexpr int kVElems = kBlockK * kVStride;    // one V buffer
+  static constexpr int kStageElems = kKElems + kVElems;
   // Q, the key flags of two stages, then `stages` × (K, V)
   static constexpr size_t smem_bytes(int stages) {
-    return kQElems * sizeof(T) + 2 * kBlockK + stages * 2 * kKVElems * sizeof(T);
+    return kQElems * sizeof(T) + 2 * kBlockK + stages * kStageElems * sizeof(T);
   }
 };
 
@@ -102,21 +110,23 @@ __device__ __forceinline__ void load_rows(T* dst, const T* src, int valid, int t
   }
 }
 
-template <typename T, int DH>
+template <typename T, int DQK, int DV>
 __global__ void __launch_bounds__(kWarps * 32)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                  const uint8_t* __restrict__ pad, T* __restrict__ o, float* __restrict__ lse,
                  int heads, int lq, int lk, int num_q_tiles, int causal, float scale) {
-  using C = Cfg<T, DH>;
+  using C = Cfg<T, DQK, DV>;
   constexpr int kBlockK = C::kBlockK;
   constexpr int kStride = C::kStride;
+  constexpr int kVStride = C::kVStride;
   constexpr int kNGroups = kBlockK / 8;  // n8 key groups of a score tile
-  constexpr int kDGroups = DH / 8;       // n8 column groups of the output
+  constexpr int kDGroups = DV / 8;       // n8 column groups of the output
+  static_assert(C::kBf16 || DQK == DV, "f32 takes one head size for q, k and v");
 
   extern __shared__ __align__(16) unsigned char smem[];
   T* qs = reinterpret_cast<T*>(smem);
   uint8_t* flags = smem + C::kQElems * sizeof(T);  // [2][kBlockK]: key valid
-  T* kv = reinterpret_cast<T*>(flags + 2 * kBlockK);  // stage s: K at 2s, V at 2s+1
+  T* kv = reinterpret_cast<T*>(flags + 2 * kBlockK);  // stage s: K, then V
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -127,8 +137,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   const int bh = blockIdx.x / num_q_tiles;
   const int b = bh / heads;
   const int q0 = qt * kBlockQ;
-  const T* kg = k + static_cast<size_t>(bh) * lk * DH;
-  const T* vg = v + static_cast<size_t>(bh) * lk * DH;
+  const T* kg = k + static_cast<size_t>(bh) * lk * DQK;
+  const T* vg = v + static_cast<size_t>(bh) * lk * DV;
 
   int num_tiles = (lk + kBlockK - 1) / kBlockK;
   if (causal) num_tiles = min(num_tiles, (min(q0 + kBlockQ, lq) - 1) / kBlockK + 1);
@@ -136,10 +146,10 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   // K/V of key tile `tile` (< num_tiles, so its first key is < lk) into its buffer
   auto load_kv = [&](int tile) {
     const int k0 = tile * kBlockK;
-    const size_t off = static_cast<size_t>(k0) * DH;
-    T* dst = kv + 2 * (tile & 1) * C::kKVElems;
-    load_rows<T, DH, kBlockK, kStride>(dst, kg + off, lk - k0, tid);
-    load_rows<T, DH, kBlockK, kStride>(dst + C::kKVElems, vg + off, lk - k0, tid);
+    T* dst = kv + (tile & 1) * C::kStageElems;
+    load_rows<T, DQK, kBlockK, kStride>(dst, kg + static_cast<size_t>(k0) * DQK, lk - k0, tid);
+    load_rows<T, DV, kBlockK, kVStride>(dst + C::kKElems, vg + static_cast<size_t>(k0) * DV,
+                                        lk - k0, tid);
   };
   // whether key `tid` of tile `tile` takes part (threads tid < kBlockK)
   auto key_flag = [&](int tile) -> uint8_t {
@@ -147,8 +157,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
     return key < lk && (pad == nullptr || pad[static_cast<size_t>(b) * lk + key] == 0);
   };
 
-  load_rows<T, DH, kBlockQ, kStride>(qs, q + (static_cast<size_t>(bh) * lq + q0) * DH, lq - q0,
-                                     tid);
+  load_rows<T, DQK, kBlockQ, kStride>(qs, q + (static_cast<size_t>(bh) * lq + q0) * DQK,
+                                      lq - q0, tid);
   if (num_tiles > 0) {
     load_kv(0);
     if (tid < kBlockK) flags[tid] = key_flag(0);
@@ -179,8 +189,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
     const int k0 = tile * kBlockK;
     if (warp_live && !(causal && k0 > warp_last)) {  // warp-uniform
       const int buf = tile & 1;
-      const T* ks = kv + (2 * buf) * C::kKVElems;
-      const T* vs = kv + (2 * buf + 1) * C::kKVElems;
+      const T* ks = kv + buf * C::kStageElems;
+      const T* vs = ks + C::kKElems;
       const uint8_t* fl = flags + buf * kBlockK;
 
       // S = q·kᵀ for the warp's 16 rows and the tile's keys
@@ -189,7 +199,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
       for (int j = 0; j < kNGroups; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
       if constexpr (C::kBf16) {
 #pragma unroll
-        for (int kk = 0; kk < DH / 16; ++kk) {
+        for (int kk = 0; kk < DQK / 16; ++kk) {
           uint32_t a[4];
           ldmatrix_x4(a, qs + (wrow + (lane & 7) + ((lane >> 3) & 1) * 8) * kStride + kk * 16 +
                              (lane >> 4) * 8);
@@ -204,7 +214,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
         }
       } else {
 #pragma unroll
-        for (int kk = 0; kk < DH / 8; ++kk) {
+        for (int kk = 0; kk < DQK / 8; ++kk) {
           const float* qr = qs + (wrow + g) * kStride + kk * 8 + t;
           uint32_t ab[4], as[4];  // q pre-scaled in f32, as the TPU kernel
           split_tf32(qr[0] * scale, ab[0], as[0]);
@@ -273,9 +283,9 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
                                  pack_bf16x2(s[2 * kk + 1][0], s[2 * kk + 1][1]),
                                  pack_bf16x2(s[2 * kk + 1][2], s[2 * kk + 1][3])};
 #pragma unroll
-          for (int d2 = 0; d2 < DH / 16; ++d2) {
+          for (int d2 = 0; d2 < DV / 16; ++d2) {
             uint32_t bv[4];  // b0, b1 of column groups 2·d2 and 2·d2 + 1
-            ldmatrix_x4_trans(bv, vs + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * kStride +
+            ldmatrix_x4_trans(bv, vs + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * kVStride +
                                       d2 * 16 + (lane >> 4) * 8);
             mma_bf16_16816(acc[2 * d2], a, bv[0], bv[1]);
             mma_bf16_16816(acc[2 * d2 + 1], a, bv[2], bv[3]);
@@ -292,10 +302,10 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
           split_tf32(s[j][3], ab[3], as[3]);
 #pragma unroll
           for (int n = 0; n < kDGroups; ++n) {
-            const float* vr = vs + (j * 8 + 2 * t) * kStride + n * 8 + g;  // v[key 2t][d g]
+            const float* vr = vs + (j * 8 + 2 * t) * kVStride + n * 8 + g;  // v[key 2t][d g]
             uint32_t b0b, b0s, b1b, b1s;
             split_tf32(vr[0], b0b, b0s);
-            split_tf32(vr[kStride], b1b, b1s);
+            split_tf32(vr[kVStride], b1b, b1s);
             mma_3xtf32(acc[n], ab, as, b0b, b1b, b0s, b1s);
           }
         }
@@ -315,7 +325,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
       lse[static_cast<size_t>(bh) * lq + row] = l[r] > 0.f ? m[r] + logf(l[r]) : INFINITY;
     }
     const float denom = fmaxf(l[r], 1e-30f);
-    T* orow = o + (static_cast<size_t>(bh) * lq + row) * DH + 2 * t;
+    T* orow = o + (static_cast<size_t>(bh) * lq + row) * DV + 2 * t;
 #pragma unroll
     for (int n = 0; n < kDGroups; ++n) {
       const float x0 = acc[n][2 * r] / denom;
@@ -329,18 +339,18 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   }
 }
 
-template <typename T, int DH>
+template <typename T, int DQK, int DV>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* pad, void* o,
                    float* lse, int batch, int heads, int lq, int lk, int causal, float scale,
                    cudaStream_t stream) {
-  using C = Cfg<T, DH>;
+  using C = Cfg<T, DQK, DV>;
   const int num_q_tiles = (lq + kBlockQ - 1) / kBlockQ;
   const long long blocks = static_cast<long long>(batch) * heads * num_q_tiles;
   if (blocks == 0) return cudaSuccess;
   if (blocks > INT_MAX) return cudaErrorInvalidConfiguration;
   const int key_tiles = (lk + C::kBlockK - 1) / C::kBlockK;
   const size_t smem = C::smem_bytes(key_tiles > 1 ? 2 : 1);
-  auto kernel = flash_fwd_kernel<T, DH>;
+  auto kernel = flash_fwd_kernel<T, DQK, DV>;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
@@ -354,38 +364,60 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* pad,
 }
 
 template <typename T>
-cudaError_t dispatch_dim(int head_dim, const void* q, const void* k, const void* v,
+cudaError_t dispatch_dim(int dqk, int dv, const void* q, const void* k, const void* v,
                          const void* pad, void* o, float* lse, int batch, int heads, int lq,
                          int lk, int causal, float scale, cudaStream_t stream) {
-  switch (head_dim) {
-    case 16: return launch<T, 16>(q, k, v, pad, o, lse, batch, heads, lq, lk, causal, scale, stream);
-    case 32: return launch<T, 32>(q, k, v, pad, o, lse, batch, heads, lq, lk, causal, scale, stream);
-    case 64: return launch<T, 64>(q, k, v, pad, o, lse, batch, heads, lq, lk, causal, scale, stream);
-    case 128:
-      return launch<T, 128>(q, k, v, pad, o, lse, batch, heads, lq, lk, causal, scale, stream);
-    default: return cudaErrorInvalidValue;
+  if (dqk == dv) {
+    switch (dqk) {
+      case 16: return launch<T, 16, 16>(q, k, v, pad, o, lse, batch, heads, lq, lk, causal, scale, stream);
+      case 32: return launch<T, 32, 32>(q, k, v, pad, o, lse, batch, heads, lq, lk, causal, scale, stream);
+      case 64: return launch<T, 64, 64>(q, k, v, pad, o, lse, batch, heads, lq, lk, causal, scale, stream);
+      case 128:
+        return launch<T, 128, 128>(q, k, v, pad, o, lse, batch, heads, lq, lk, causal, scale,
+                                   stream);
+      default: return cudaErrorInvalidValue;
+    }
   }
+  if constexpr (sizeof(T) == 2) {  // MLA: q·kᵀ at 192 (128 + a 64-wide rope part), p·v at 128
+    if (dqk == 192 && dv == 128) {
+      return launch<T, 192, 128>(q, k, v, pad, o, lse, batch, heads, lq, lk, causal, scale,
+                                 stream);
+    }
+  }
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// q [B,H,Lq,Dh], k/v [B,H,Lk,Dh], o [B,H,Lq,Dh], all contiguous and 16-byte
-// aligned, f32 (is_bf16 = 0) or bf16 (is_bf16 = 1); key_padding_mask [B,Lk]
-// bytes (nonzero = pad) or null; lse [B,H,Lq] f32, or null when not wanted
-// (serving). Launches on `stream`, does not synchronise, and returns the
-// launch's cudaError_t.
+// q [B,H,Lq,Dqk], k [B,H,Lk,Dqk], v [B,H,Lk,Dv], o [B,H,Lq,Dv], all contiguous
+// and 16-byte aligned, f32 (is_bf16 = 0) or bf16 (is_bf16 = 1); Dqk = Dv in
+// {16, 32, 64, 128}, or (bf16 only) Dqk 192 and Dv 128; key_padding_mask
+// [B,Lk] bytes (nonzero = pad) or null; lse [B,H,Lq] f32, or null when not
+// wanted (serving); `scale` multiplies q·kᵀ (1/√Dqk, or MLA's own).
+// Launches on `stream`, does not synchronise, and returns the launch's
+// cudaError_t.
+extern "C" int dr4sr_flash_attention_fwd_scaled(const void* q, const void* k, const void* v,
+                                                const void* key_padding_mask, void* o,
+                                                void* lse, int batch, int heads, int lq, int lk,
+                                                int head_dim_qk, int head_dim_v, float scale,
+                                                int causal, int is_bf16, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* lse_f = static_cast<float*>(lse);
+  if (is_bf16) {
+    return dispatch_dim<__nv_bfloat16>(head_dim_qk, head_dim_v, q, k, v, key_padding_mask, o,
+                                       lse_f, batch, heads, lq, lk, causal, scale, s);
+  }
+  return dispatch_dim<float>(head_dim_qk, head_dim_v, q, k, v, key_padding_mask, o, lse_f,
+                             batch, heads, lq, lk, causal, scale, s);
+}
+
+// The same for one head size Dh of q, k and v and the scale 1/√Dh, computed
+// as the reference does: in double, rounded once to f32.
 extern "C" int dr4sr_flash_attention_fwd(const void* q, const void* k, const void* v,
                                          const void* key_padding_mask, void* o, void* lse,
                                          int batch, int heads, int lq, int lk, int head_dim,
                                          int causal, int is_bf16, void* stream) {
-  // the reference computes 1/√Dh in double and rounds it once to f32
   const float scale = static_cast<float>(1.0 / std::sqrt(static_cast<double>(head_dim)));
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  float* lse_f = static_cast<float*>(lse);
-  if (is_bf16) {
-    return dispatch_dim<__nv_bfloat16>(head_dim, q, k, v, key_padding_mask, o, lse_f, batch,
-                                       heads, lq, lk, causal, scale, s);
-  }
-  return dispatch_dim<float>(head_dim, q, k, v, key_padding_mask, o, lse_f, batch, heads, lq,
-                             lk, causal, scale, s);
+  return dr4sr_flash_attention_fwd_scaled(q, k, v, key_padding_mask, o, lse, batch, heads, lq,
+                                          lk, head_dim, head_dim, scale, causal, is_bf16, stream);
 }

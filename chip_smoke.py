@@ -247,6 +247,7 @@ from dr4sr_tpu_torch.ops.attention import (
     flash_attention_fwd,
     mha_reference,
 )
+from dr4sr_tpu_torch.ops.graphs import CudaGraphs
 from dr4sr_tpu_torch.regen.decode import (
     beam_decode_batch_cached,
     decode_dataset,
@@ -2033,13 +2034,11 @@ def fused_vs_eager(trainer, kind="train", without_remat=False):
         runs[name]["generators"] = (state["generator"], state["cuda_rng"])
         runs[name]["step"] = state["step"]
     dtype = trainer.compute_dtype or torch.float32
-    graphs = trainer._graphs.graphs
     result = {"kind": kind, "steps": FUSED_N, **_versus(runs, "graph", dtype),
               "rtol": FUSED_RTOL[dtype], "losses_graph": runs["graph"]["losses"].tolist(),
               "step": [runs[n]["step"] for n in runs],
               "launches": {k: list(v) for k, v in launches.items()},
-              "collectives": collectives,
-              "capture_ms": {f"{k}_{n}": g.capture_ms for (k, n), g in graphs.items()}}
+              "collectives": collectives}
     if without_remat:
         result["without_remat"] = _versus(runs, "eager_without_remat", dtype)
     return result
@@ -2103,14 +2102,13 @@ def fused_sasrec(workdir, card, result):
     fwd, bwd = flash_attention_fwd.launches, flash_attention_bwd.launches
     steps = epochs * steps_per_epoch
     want = (layers * (steps + (epochs + 1) * eval_batches), layers * steps)
-    groups = sorted(n for _, n in trainer._graphs.graphs)
+    groups = sorted(n for _, n in trainer._graphs.cuda.graphs)
     with open(f"{trainer.run_dir()}/metrics.jsonl") as f:
         losses = [json.loads(line)["train_loss"] for line in f]
     result.update(fit_s=fit_s, epoch_train_s=trainer.training_time / epochs,
                   epoch_eval_s=trainer.inference_time / epochs,
                   attention_fwd_launches=fwd, attention_bwd_launches=bwd,
                   want_launches=list(want), graphs=groups,
-                  capture_ms={str(n): g.capture_ms for (_, n), g in trainer._graphs.graphs.items()},
                   train_losses=losses, val=val, test=test, card=card)
     if (fwd, bwd) != want:
         raise AssertionError(f"fused SASRec launches: forward {fwd}, backward {bwd} (want {want})")
@@ -2234,7 +2232,7 @@ def fused_meta(workdir, card, result):
                   want_launches=list(want), outer_steps=[list(c) for c in calls],
                   want_outer_steps=[list(c) for c in want_outer],
                   groups=[f"{k} {n}" for k, n in sizes],
-                  graphs=sorted(f"{k} {n}" for k, n in trainer._graphs.graphs),
+                  graphs=sorted(f"{k} {n}" for k, n in trainer._graphs.cuda.graphs),
                   val_recall20=val["recall@20"], card=card)
     if (fwd, bwd) != want or calls != want_outer or sizes != want_sizes:
         raise AssertionError(f"fused MetaModel(SASRec): launches {fwd}, {bwd} (want {want}); "
@@ -2337,8 +2335,8 @@ def fused_picks(workdir, result):
         undo()
     result.update(replays=FUSED_PICK_REPLAYS, steps_a_replay=n, picks=len(graph),
                   picks_a_replay=len(captured), taken={k: graph.count(k) for k in range(3)},
-                  equal_to_eager=graph == eager, graphs=sorted(map(list, trainer._graphs.graphs)),
-                  launches=list(launches))
+                  equal_to_eager=graph == eager,
+                  graphs=sorted(map(list, trainer._graphs.cuda.graphs)), launches=list(launches))
     if graph != eager or set(graph) != {0, 1, 2} or len(captured) != 2 * n:
         raise AssertionError(f"fused CL4SRec picks: {result}; graph {graph[:64]}, "
                              f"eager {eager[:64]}")
@@ -2802,7 +2800,7 @@ def dist_nccl_world1(workdir, datasets, result, device="cuda"):
             runs[f"{name}_n{FUSED_N}"] = (
                 [loss], {k: v.clone() for k, v in trainer.rec.module.state_dict().items()}, {},
                 (flash_attention_fwd.launches, flash_attention_bwd.launches),
-                sorted(n for _, n in trainer._graphs.graphs) if trainer._graphs else [])
+                sorted(n for _, n in trainer._graphs.cuda.graphs) if trainer._graphs else [])
         backend = torch.distributed.get_backend()
     finally:
         torch.distributed.destroy_process_group()
@@ -3441,7 +3439,7 @@ def check_dist_fused_run(run, outs):
         summary["ranks"].append({
             k: res[k] for k in ("bitwise", "tensors", "not_bitwise", "over_bound",
                                 "generators_equal", "loss_max_abs_err", "launches",
-                                "capture_ms", "timed")})
+                                "timed")})
         summary["ranks"][-1].update(collectives=got, want_launches=launches,
                                     want_collectives=collectives)
         check_fused_vs_eager(f"dist {run} rank {r}", res)
@@ -3477,16 +3475,17 @@ def dist_fused(card, workdir, result, fault=None, only=None):
 
 def _replay_uncounted():
     """Fault: a replay adds its attention launches but not its collectives."""
-    keep = StepGraphs._replay
+    keep = CudaGraphs.replay
 
-    def uncounted(captured):
+    def uncounted(self, key):
+        captured = self.graphs[key]
         captured.graph.replay()
         attention.flash_attention_fwd.launches += captured.launches[0]
         attention.flash_attention_bwd.launches += captured.launches[1]
-        return captured.losses
+        return captured.outputs
 
-    StepGraphs._replay = staticmethod(uncounted)
-    return lambda: setattr(StepGraphs, "_replay", staticmethod(keep))
+    CudaGraphs.replay = uncounted
+    return lambda: setattr(CudaGraphs, "replay", keep)
 
 
 # --nccl --controls: each fault patched into the ranks of its run, whose
@@ -4362,11 +4361,14 @@ def dist_controls(workdir, device="cuda"):
 # and the row log-sum-exp off by 1e-3 (every p scaled by e^-0.001)
 FAULTS = {
     "no_key_padding_mask": lambda bwd: (
-        lambda q, k, v, o, do, lse, mask, causal: bwd(q, k, v, o, do, lse, None, causal)),
+        lambda q, k, v, o, do, lse, mask, causal, scale=None: bwd(
+            q, k, v, o, do, lse, None, causal, scale=scale)),
     "not_causal": lambda bwd: (
-        lambda q, k, v, o, do, lse, mask, causal: bwd(q, k, v, o, do, lse, mask, False)),
+        lambda q, k, v, o, do, lse, mask, causal, scale=None: bwd(
+            q, k, v, o, do, lse, mask, False, scale=scale)),
     "lse_plus_1e-3": lambda bwd: (
-        lambda q, k, v, o, do, lse, mask, causal: bwd(q, k, v, o, do, lse + 1e-3, mask, causal)),
+        lambda q, k, v, o, do, lse, mask, causal, scale=None: bwd(
+            q, k, v, o, do, lse + 1e-3, mask, causal, scale=scale)),
 }
 
 
@@ -4529,8 +4531,10 @@ def hmma_counts(name):
 
 def check_tensor_cores(name, counts):
     """Every instantiation of every kernel of the library that does products
-    holds HMMA, and together they cover both dtypes and every head dim."""
+    holds HMMA, and together they cover both dtypes and every head dim, and
+    MLA's wide q·kᵀ head dims in bf16."""
     want = {f"{d}_dh{dh}" for d in ("bf16", "f32") for dh in attention.HEAD_DIMS}
+    want |= {f"bf16_dh{dqk}" for dqk, _ in attention.WIDE_QK_HEAD_DIMS}
     if not NO_PRODUCTS.get(name, set()) <= set(counts):
         raise AssertionError(f"{name}: no kernel {NO_PRODUCTS[name]} in the machine code")
     products = {k: c for k, c in counts.items() if k not in NO_PRODUCTS.get(name, ())}

@@ -8,8 +8,8 @@ MLP(RMSNorm(x)), the MLP a dense SwiGLU for the first
 RMSNorm and ``seq_pooling`` ('origin' when training, 'last' in eval).
 There is no absolute position table: YaRN RoPE inside MLA is the position
 signal, as published. No biases, no dropout. The layers are
-``modules/mla.py`` and ``modules/moe.py``; the plain f32 reference is
-``reference/deepseek_v2.py``.
+``modules/mla.py`` and ``modules/moe.py``; the plain f32 reference, which
+the tests hold it against, is ``tests/torch_deepseek_v2_reference.py``.
 
 Departures from the published model, for the recommender: the scores are
 dot products against the input table (``RecModel.item_table``), where

@@ -48,7 +48,7 @@ bytes of its result on this rank (an all-reduce: the tensor; an all-gather:
 the gathered tensor; a ring exchange: the tensors sent). The tests read the
 counter where the JAX package's tests read collective ops out of the
 compiled HLO. A call made while a CUDA graph captures runs at each replay,
-not at the capture: ``train.fused.StepGraphs`` takes the capture's counts
+not at the capture: ``ops/graphs.py::CudaGraphs`` takes the capture's counts
 back out (:meth:`CollectiveCounter.counts`, :meth:`CollectiveCounter.restore`)
 and adds them at every replay (:meth:`CollectiveCounter.add_counts`).
 

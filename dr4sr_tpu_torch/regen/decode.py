@@ -49,16 +49,14 @@ captures records its capture's eager spans, then ``regen.replay``.
 from __future__ import annotations
 
 import copy
-import gc
-import itertools
 import weakref
-from typing import Dict, List, NamedTuple, Optional, Tuple
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-from dr4sr_tpu_torch.ops import attention
+from dr4sr_tpu_torch.ops.graphs import CudaGraphs
 from dr4sr_tpu_torch.ops.topk import top_k_stable
 from dr4sr_tpu_torch.parallel.collectives import all_gather
 from dr4sr_tpu_torch.parallel.mesh import DATA_AXIS, MeshPlan
@@ -191,106 +189,39 @@ def greedy_decode_batch_cached(
     return buf
 
 
-class _Captured(NamedTuple):
-    graph: "torch.cuda.CUDAGraph"
-    src: torch.Tensor  # static inputs, copied into before each replay
-    condition: torch.Tensor
-    draws: Optional[torch.Tensor]
-    buf: torch.Tensor  # [lanes, max_len] tokens, rewritten by every replay
-    launches: Tuple[int, int]  # attention launches in one replay
-
-
-def _launches() -> Tuple[int, int]:
-    return attention.flash_attention_fwd.launches, attention.flash_attention_bwd.launches
-
-
 class _DecodeGraphs:
-    """CUDA graphs of one generator's :func:`greedy_decode_batch_cached`, a
-    batch one replay, as ``train/fused.py::StepGraphs`` holds a trainer's
-    steps:
-
-    * a graph's key is what the batch's code depends on: its lanes and
-      source width, ``max_len``, γ (a constant of the graph) and the
-      weights' dtype; the device is the object's;
-    * a key's first batch runs eagerly on the capture stream, which loads
-      the kernels and makes cuBLAS's workspace there; its next batch is
-      captured once (nothing runs during capture) into the pool the keys
-      share, and replayed, as is every later batch of the key;
-    * a replay copies the batch's sources, conditions and draws into the
-      graph's static inputs on the current stream, launches the graph and
-      returns the graph's token buffer, which the next replay rewrites;
-    * a graph reads the weights by address: in-place updates are seen, and
-      a parameter or buffer rebound to other storage drops every graph, to
-      be captured again;
-    * the attention kernels' launch counters are what ran: capture's
-      increments are taken back out, and each replay adds them once."""
+    """A generator's CUDA graphs of :func:`greedy_decode_batch_cached`, a
+    batch one replay (``ops/graphs.py``), and what they stage: each key's
+    static sources, conditions and draws, which a replay copies the
+    batch's into on the current stream before the launch. A graph's key is
+    what the batch's code depends on: its lanes and source width,
+    ``max_len``, γ (a constant of the graph) and the weights' dtype. A
+    parameter, buffer or submodule of the generator rebound to other
+    storage drops every graph, to be captured again."""
 
     def __init__(self, device: torch.device) -> None:
-        self.device = device
-        self.stream = torch.cuda.Stream(device)
-        self.pool = torch.cuda.graph_pool_handle()
-        self.graphs: Dict[tuple, _Captured] = {}
-        self.warm: set = set()
-        self.addresses: Tuple[int, ...] = ()
+        self.cuda = CudaGraphs(device)
+        self.inputs: Dict[tuple, list] = {}
 
     def decode(self, generator: Generator, src, condition, max_len: int, gamma: float,
                draws: Optional[torch.Tensor]) -> torch.Tensor:
-        addresses = tuple(t.data_ptr() for t in itertools.chain(generator.parameters(),
-                                                                generator.buffers()))
-        if addresses != self.addresses:
-            self.graphs.clear()
-            self.addresses = addresses
+        graphs = self.cuda
+        graphs.watch(generator)
         key = (tuple(src.shape), max_len, gamma, generator.item_embedding.weight.dtype)
-        captured = self.graphs.get(key)
-        if captured is None:
-            if key not in self.warm:
-                return self._warm_up(key, generator, src, condition, max_len, gamma, draws)
-            captured = self.graphs[key] = self._capture(generator, src, condition, max_len,
-                                                        gamma, draws)
+        if key not in graphs.warm:
+            return graphs.run(key, lambda: greedy_decode_batch_cached(
+                generator, src, condition, max_len, gamma, draws=draws))
+        if key not in graphs.graphs:
+            inputs = self.inputs[key] = [
+                t.clone(memory_format=torch.contiguous_format) if t is not None else None
+                for t in (src, condition, draws)]
+            graphs.capture(key, lambda: greedy_decode_batch_cached(
+                generator, *inputs[:2], max_len, gamma, draws=inputs[2]))
         with span("regen.replay"):
-            captured.src.copy_(src)
-            captured.condition.copy_(condition)
-            if draws is not None:
-                captured.draws.copy_(draws)
-            captured.graph.replay()
-            attention.flash_attention_fwd.launches += captured.launches[0]
-            attention.flash_attention_bwd.launches += captured.launches[1]
-        return captured.buf
-
-    def _warm_up(self, key, generator, src, condition, max_len, gamma, draws) -> torch.Tensor:
-        current = torch.cuda.current_stream(self.device)
-        self.stream.wait_stream(current)
-        with torch.cuda.stream(self.stream):
-            buf = greedy_decode_batch_cached(generator, src, condition, max_len, gamma,
-                                             draws=draws)
-        current.wait_stream(self.stream)
-        self.warm.add(key)
-        return buf
-
-    def _capture(self, generator, src, condition, max_len, gamma, draws) -> _Captured:
-        inputs = [t.clone(memory_format=torch.contiguous_format) if t is not None else None
-                  for t in (src, condition, draws)]
-        graph = torch.cuda.CUDAGraph()
-        before = _launches()
-        # no garbage collection during capture: freeing a CUDA graph left in
-        # a reference cycle (another generator's) calls the CUDA runtime,
-        # which invalidates the capture
-        gc.collect()
-        collecting = gc.isenabled()
-        gc.disable()
-        # errors on unsafe calls from this thread only: under a mesh over
-        # NCCL its watchdog thread queries events while this one captures
-        try:
-            with torch.cuda.graph(graph, pool=self.pool, stream=self.stream,
-                                  capture_error_mode="thread_local"):
-                buf = greedy_decode_batch_cached(generator, *inputs[:2], max_len, gamma,
-                                                 draws=inputs[2])
-        finally:
-            if collecting:
-                gc.enable()
-        after = _launches()
-        attention.flash_attention_fwd.launches, attention.flash_attention_bwd.launches = before
-        return _Captured(graph, *inputs, buf, (after[0] - before[0], after[1] - before[1]))
+            for static, t in zip(self.inputs[key], (src, condition, draws)):
+                if t is not None:
+                    static.copy_(t)
+            return graphs.replay(key)
 
 
 # the graphs of each generator on the card, dropped with it; neither
@@ -300,7 +231,7 @@ _GRAPHS: "weakref.WeakKeyDictionary[Generator, _DecodeGraphs]" = weakref.WeakKey
 
 def _graphs_of(generator: Generator, device: torch.device) -> _DecodeGraphs:
     graphs = _GRAPHS.get(generator)
-    if graphs is None or graphs.device != device:
+    if graphs is None or graphs.cuda.device != device:
         graphs = _GRAPHS[generator] = _DecodeGraphs(device)
     return graphs
 

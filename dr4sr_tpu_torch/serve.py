@@ -26,11 +26,14 @@ Every chunk of a request is ``batch_size`` histories of ``max_seq_len``
 items, the last one padded with empty histories. On a CUDA device a chunk
 is scored by one replay of a CUDA graph that holds the whole chain: the
 encoder's forward through the attention kernel, the catalog product, the
-keep and seen masks and the top-k (:class:`_ChunkGraphs`). A graph's key is
-(k', ``exclude_seen``); a key's first chunk runs eagerly, its second is
-captured, and every later one replays the same kernels in the same order,
-so the items and scores are the eager path's to the bit. A one-chunk call
-of a new key captures nothing. On the CPU every chunk runs eagerly.
+keep and seen masks and the top-k (``ops/graphs.py``). The graphs read the
+``Recommender``'s static inputs, which ``serve.batch`` rewrites before each
+chunk. A graph's key is (k', ``exclude_seen``): a chunk's rows and length
+are ``batch_size`` and ``max_seq_len``, and its device and ``pre_padding``
+are fixed. A key's first chunk runs eagerly, its second is captured, and
+every later one replays the same kernels in the same order, so the items
+and scores are the eager path's to the bit. A one-chunk call of a new key
+captures nothing. On the CPU every chunk runs eagerly.
 
 Under a ``torch.profiler`` session each chunk of a request carries three
 spans (``utils/spans.py``): ``serve.batch`` (padding the histories into the
@@ -44,8 +47,7 @@ from __future__ import annotations
 import copy
 import dataclasses
 import functools
-import gc
-from typing import Callable, Dict, Mapping, NamedTuple, Optional, Sequence, Tuple
+from typing import Dict, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -53,7 +55,7 @@ import torch
 from dr4sr_tpu_torch.models import get_model_class
 from dr4sr_tpu_torch.models.base import RecModel
 from dr4sr_tpu_torch.models.fmlp import pre_pad_batch
-from dr4sr_tpu_torch.ops import attention
+from dr4sr_tpu_torch.ops.graphs import CudaGraphs
 from dr4sr_tpu_torch.train import checkpoint
 from dr4sr_tpu_torch.utils.spans import span
 
@@ -66,103 +68,6 @@ def _unpadded(params: Mapping[str, torch.Tensor],
             if k.endswith("item_embedding.weight")}
     return {k: v[: rows[k]] if k in rows and v.shape[0] > rows[k] else v
             for k, v in params.items()}
-
-
-class _Captured(NamedTuple):
-    graph: "torch.cuda.CUDAGraph"
-    scores: torch.Tensor  # [batch_size, k'], rewritten by every replay
-    items: torch.Tensor
-    launches: int  # forward-kernel launches in one replay
-
-
-class _ChunkGraphs:
-    """CUDA graphs of one ``Recommender``'s chunks, a chunk one replay, as
-    ``regen/decode.py::_DecodeGraphs`` holds a generator's batches:
-
-    * a graph's key is (k', ``exclude_seen``): a chunk's rows and length are
-      the ``Recommender``'s ``batch_size`` and ``max_seq_len``, and its
-      device and ``pre_padding`` are fixed;
-    * every graph reads the ``Recommender``'s static inputs, which
-      ``serve.batch`` rewrites before each chunk;
-    * a key's first chunk runs eagerly on the capture stream, which loads
-      the kernels and makes cuBLAS's workspace there; its next chunk is
-      captured once (nothing runs during capture) into the pool the keys
-      share, and replayed, as is every later chunk of the key;
-    * a graph reads the weights by address: in-place updates are seen, and
-      a parameter, buffer or submodule rebound since the last call drops
-      every graph (:meth:`watch`, a few µs a call);
-    * the attention kernel's launch counter is what ran: capture's
-      increments are taken back out, and each replay adds them once."""
-
-    def __init__(self, module: torch.nn.Module, device: torch.device) -> None:
-        self.module = module
-        self.stream = torch.cuda.Stream(device)
-        self.pool = torch.cuda.graph_pool_handle()
-        self.graphs: Dict[tuple, _Captured] = {}
-        self.warm: set = set()
-        self._bind()
-
-    def _bind(self) -> None:
-        """Where each parameter, buffer and submodule of the module is held,
-        and what is held there now."""
-        mods = list(self.module.modules())
-        self.tensor_slots = [(d, name) for m in mods for d in (m._parameters, m._buffers)
-                             for name, t in d.items() if t is not None]
-        self.module_slots = [(m._modules, name) for m in mods for name in m._modules]
-        self.bound = self._bindings()
-
-    def _bindings(self) -> tuple:
-        return (tuple(d[name].data_ptr() for d, name in self.tensor_slots),
-                tuple(d[name] for d, name in self.module_slots))
-
-    def watch(self) -> None:
-        if self._bindings() != self.bound:
-            self.graphs.clear()
-            self._bind()
-
-    def topk(self, key: tuple,
-             score: Callable[[], Tuple[torch.Tensor, torch.Tensor]]
-             ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """``score()``'s (scores, items) for the chunk in the static inputs."""
-        captured = self.graphs.get(key)
-        if captured is None:
-            if key not in self.warm:
-                return self._warm_up(key, score)
-            captured = self.graphs[key] = self._capture(score)
-        captured.graph.replay()
-        attention.flash_attention_fwd.launches += captured.launches
-        return captured.scores, captured.items
-
-    def _warm_up(self, key: tuple, score) -> Tuple[torch.Tensor, torch.Tensor]:
-        current = torch.cuda.current_stream(self.stream.device)
-        self.stream.wait_stream(current)
-        with torch.cuda.stream(self.stream):
-            out = score()
-        current.wait_stream(self.stream)
-        self.warm.add(key)
-        return out
-
-    def _capture(self, score) -> _Captured:
-        graph = torch.cuda.CUDAGraph()
-        before = attention.flash_attention_fwd.launches
-        # no garbage collection during capture: freeing a CUDA graph left in
-        # a reference cycle calls the CUDA runtime, which invalidates the
-        # capture
-        gc.collect()
-        collecting = gc.isenabled()
-        gc.disable()
-        # errors on unsafe calls from this thread only: another thread of the
-        # process (NCCL's watchdog under a mesh) may query events meanwhile
-        try:
-            with torch.cuda.graph(graph, pool=self.pool, stream=self.stream,
-                                  capture_error_mode="thread_local"):
-                scores, items = score()
-        finally:
-            if collecting:
-                gc.enable()
-        launches = attention.flash_attention_fwd.launches - before
-        attention.flash_attention_fwd.launches = before
-        return _Captured(graph, scores, items, launches)
 
 
 class Recommender:
@@ -209,7 +114,8 @@ class Recommender:
         self._inputs = ({name: torch.zeros_like(t, device=self.device)
                          for name, t in self._host.items()} if on_card else self._host)
         self._no_hist = torch.zeros((batch_size, 1), dtype=torch.int64, device=self.device)
-        self._graphs = _ChunkGraphs(module, self.device) if on_card else None
+        # the chunks' graphs by (k', exclude_seen): they read the inputs above
+        self._graphs = CudaGraphs(self.device) if on_card else None
 
     @classmethod
     def from_checkpoint(cls, path: str, root: Optional[str] = None, **kwargs) -> "Recommender":
@@ -281,7 +187,7 @@ class Recommender:
         out_items = np.zeros((n, k), np.int64)
         out_scores = np.zeros((n, k), np.float32)
         if self._graphs is not None:
-            self._graphs.watch()
+            self._graphs.watch(self.rec.module)
         for start in range(0, n, b):
             chunk = histories[start : start + b]
             with span("serve.batch"):
@@ -291,7 +197,7 @@ class Recommender:
                 if self._graphs is None:
                     scores, items = score()
                 else:
-                    scores, items = self._graphs.topk((k, exclude_seen), score)
+                    scores, items = self._graphs.run((k, exclude_seen), score)
             m = len(chunk)
             with span("serve.fetch"):
                 out_items[start : start + m] = items[:m].cpu().numpy()

@@ -20,8 +20,7 @@ those of N eager steps.
   the card over a gloo mesh axis, and only there;
 * :class:`StepGraphs` — the graphs of one trainer: static ``[N, B, ...]``
   inputs fed from pinned host buffers, one graph per (kind, group length)
-  captured on a side stream into one shared memory pool, the trainer's
-  generator registered with each.
+  through ``ops/graphs.py``, the trainer's generator registered with each.
 
 On a mesh over NCCL a graph holds the step's collectives (the gradient
 all-reduce over ``data``, EP's gathers over ``model``, CP's ring): they are
@@ -35,15 +34,12 @@ nothing falls back to eager steps.
 
 from __future__ import annotations
 
-import gc
-import time
-from typing import Callable, Dict, Iterable, List, NamedTuple, Optional, Tuple
+from typing import Callable, Dict, Iterable, List, Optional
 
 import numpy as np
 import torch
 
-from dr4sr_tpu_torch.ops import attention
-from dr4sr_tpu_torch.parallel.collectives import COUNTER
+from dr4sr_tpu_torch.ops.graphs import CudaGraphs
 from dr4sr_tpu_torch.utils.spans import span
 
 Batch = Dict[str, torch.Tensor]
@@ -80,58 +76,28 @@ def capture_refusal(device, backends: Iterable[str]) -> Optional[str]:
     return None
 
 
-def _counts():
-    """The attention kernels' launch counters and the collectives' counts."""
-    return ((attention.flash_attention_fwd.launches, attention.flash_attention_bwd.launches),
-            COUNTER.counts())
-
-
-def _since(before: dict, after: dict) -> dict:
-    return {k: n - before.get(k, 0) for k, n in after.items() if n != before.get(k, 0)}
-
-
-class _Captured(NamedTuple):
-    graph: "torch.cuda.CUDAGraph"
-    losses: torch.Tensor  # [n], rewritten by every replay
-    launches: Tuple[int, int]  # attention launches in one replay
-    collectives: Tuple[dict, dict]  # calls and bytes by (kind, axis) in one replay
-    capture_ms: float
-
-
 class StepGraphs:
     """CUDA graphs of groups of optimizer steps, for one trainer's state.
 
     ``run(kind, step, batches, extras)`` runs ``len(batches)`` calls of
     ``step`` (one optimizer step each, returning its loss), one a host
-    batch:
-
-    * the batches are stacked into pinned host buffers and from there, in
-      one copy a key, into static ``[max_steps, B, ...]`` device inputs; a
-      group of n reads their first n rows;
-    * a kind's first group runs its steps eagerly on the capture stream:
-      they load the kernels' libraries and make cuBLAS's workspace, cuFFT's
-      plans and the optimizer's state, and they count as the steps they are;
-    * a (kind, n) seen again is captured once (nothing runs during capture)
-      and replayed. The graphs share one memory pool and are replayed one
-      at a time on the current stream, so no graph's memory is in use while
-      another runs;
-    * the attention kernels' launch counters and the collectives' counter
-      (``collectives.COUNTER``) are what ran: capture's increments are
-      taken back out, and each replay adds them once.
+    batch, and returns the [n] losses. What it stages: the batches, stacked
+    into pinned host buffers and from there, in one copy a key, into static
+    ``[max_steps, B, ...]`` device inputs, of which a group of n reads the
+    first n rows. Its graphs (``ops/graphs.py``) are keyed by (kind, n),
+    with the trainer's generator registered: a kind's first group runs
+    eagerly whatever its length, and each (kind, n) after it is captured at
+    its first group and replayed.
 
     A graph reads the parameters, the optimizer's state, the meta
     parameters and ``extras`` by address: whoever rebinds one of them
-    drops this object. Returns the [n] losses (a graph's own output tensor,
-    rewritten by its next replay)."""
+    drops this object. The losses are a graph's own output tensor,
+    rewritten by its next replay."""
 
     def __init__(self, generator: torch.Generator, max_steps: int) -> None:
         self.device = generator.device
-        self.generator = generator
         self.max_steps = int(max_steps)
-        self.stream = torch.cuda.Stream(self.device)
-        self.pool = torch.cuda.graph_pool_handle()
-        self.graphs: Dict[Tuple[str, int], _Captured] = {}
-        self.warm: set = set()
+        self.cuda = CudaGraphs(self.device, generators=(generator,))
         self.inputs: Optional[Batch] = None
         self.pinned: Batch = {}
         self._layout: Optional[dict] = None  # {key: (dtype, one batch's shape)}
@@ -177,61 +143,7 @@ class StepGraphs:
             extras: Batch) -> torch.Tensor:
         with span("train.stage"):
             n = self._stage(batches)
-        captured = self.graphs.get((kind, n))
-        if captured is None:
-            batches = step_batches(self.inputs, extras, n)
-            if kind not in self.warm:
-                return self._warm_up(kind, step, batches)
-            captured = self.graphs[(kind, n)] = self._capture(step, batches)
-        return self._replay(captured)
-
-    @staticmethod
-    def _replay(captured: _Captured) -> torch.Tensor:
-        captured.graph.replay()
-        attention.flash_attention_fwd.launches += captured.launches[0]
-        attention.flash_attention_bwd.launches += captured.launches[1]
-        COUNTER.add_counts(captured.collectives)
-        return captured.losses
-
-    def _warm_up(self, kind: str, step: StepFn, batches: List[Batch]) -> torch.Tensor:
-        current = torch.cuda.current_stream(self.device)
-        self.stream.wait_stream(current)
-        with torch.cuda.stream(self.stream):
-            losses = torch.stack([step(b) for b in batches])
-        current.wait_stream(self.stream)
-        self.warm.add(kind)
-        return losses
-
-    def _capture(self, step: StepFn, batches: List[Batch]) -> _Captured:
-        graph = torch.cuda.CUDAGraph()
-        # the trainer's generator draws inside the steps: registered, each
-        # replay reads its offset and advances it by the whole graph's draws
-        # (the default generator, dropout's, is registered by the capture)
-        graph.register_generator_state(self.generator)
-        before = _counts()
-        t0 = time.perf_counter()
-        # no garbage collection during capture: a collection that frees a
-        # CUDA graph (or event) left in a reference cycle calls the CUDA
-        # runtime, which invalidates the capture (seen on the card); torch
-        # no longer collects before a capture itself
-        gc.collect()
-        collecting = gc.isenabled()
-        gc.disable()
-        # errors on unsafe calls from this thread only: NCCL's watchdog
-        # thread queries its collectives' events while this one captures
-        try:
-            with torch.cuda.graph(graph, pool=self.pool, stream=self.stream,
-                                  capture_error_mode="thread_local"):
-                losses = torch.stack([step(b) for b in batches])
-        finally:
-            if collecting:
-                gc.enable()
-        ms = (time.perf_counter() - t0) * 1e3
-        (fwd, bwd), (calls, nbytes) = _counts()
-        # capture ran nothing: what the wrappers and collectives counted
-        # runs at each replay
-        (fwd0, bwd0), counts0 = before
-        attention.flash_attention_fwd.launches, attention.flash_attention_bwd.launches = fwd0, bwd0
-        COUNTER.restore(counts0)
-        return _Captured(graph, losses, (fwd - fwd0, bwd - bwd0),
-                         (_since(counts0[0], calls), _since(counts0[1], nbytes)), ms)
+        return self.cuda.run(
+            (kind, n),
+            lambda: torch.stack([step(b) for b in step_batches(self.inputs, extras, n)]),
+            warm_key=kind)

@@ -1,5 +1,6 @@
-"""``decode_dataset``'s CUDA graphs (``regen/decode.py::_DecodeGraphs``)
-against the eager batch function on the card, to the bit.
+"""``decode_dataset``'s CUDA graphs (``regen/decode.py::_DecodeGraphs``,
+through ``ops/graphs.py``) against the eager batch function on the card, to
+the bit.
 
 The graphed path runs only on a CUDA device, so these tests are marked
 ``card`` and skip without one. They import no JAX and read no fixture of
@@ -22,6 +23,7 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from dr4sr_tpu_torch.ops import attention
+from dr4sr_tpu_torch.ops.graphs import CudaGraphs
 from dr4sr_tpu_torch.regen import decode
 from dr4sr_tpu_torch.regen.generator import Generator
 from dr4sr_tpu_torch.utils.spans import SPANS
@@ -84,13 +86,13 @@ def graphed(generator, seqs, gamma=0.0, seed=0, precision="fp32"):
 def captures(monkeypatch):
     """The number of captures made, as a one-element list."""
     count = [0]
-    capture = decode._DecodeGraphs._capture
+    capture = CudaGraphs.capture
 
     def counted(self, *args):
         count[0] += 1
         return capture(self, *args)
 
-    monkeypatch.setattr(decode._DecodeGraphs, "_capture", counted)
+    monkeypatch.setattr(CudaGraphs, "capture", counted)
     return count
 
 

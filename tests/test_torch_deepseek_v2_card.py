@@ -15,11 +15,11 @@ import copy
 import numpy as np
 import pytest
 import torch
+import torch_deepseek_v2_reference as ref
 
 from dr4sr_tpu_torch.models.base import RecModel
 from dr4sr_tpu_torch.models.deepseek_v2 import DeepSeekV2Rec
 from dr4sr_tpu_torch.modules.moe import DeepSeekMoE
-from dr4sr_tpu_torch.reference import deepseek_v2 as ref
 
 pytestmark = pytest.mark.card
 

@@ -1,5 +1,5 @@
 """DeepSeekV2Rec (``models/deepseek_v2.py``: MLA, DeepSeekMoE) on the CPU at a
-tiny size, against the plain f32 reference (``reference/deepseek_v2.py``)
+tiny size, against the plain f32 reference (``torch_deepseek_v2_reference.py``)
 on the same seeded weights: the forward, the loss and every gradient leaf;
 the expert shares of a MoE layer adding up to the whole layer; the folded
 layer (``fold_foreign_experts``) as a whole layer of repeated experts; YaRN's
@@ -14,12 +14,12 @@ import os
 import numpy as np
 import pytest
 import torch
+import torch_deepseek_v2_reference as ref
 
 from dr4sr_tpu_torch.models.base import RecModel
 from dr4sr_tpu_torch.models.deepseek_v2 import DeepSeekV2Rec
 from dr4sr_tpu_torch.modules.mla import yarn_inv_freq, yarn_mscale
 from dr4sr_tpu_torch.modules.moe import DeepSeekMoE
-from dr4sr_tpu_torch.reference import deepseek_v2 as ref
 from dr4sr_tpu_torch.utils import spans
 
 ROPE = dict(type="yarn", factor=40, original_max_position_embeddings=4096, beta_fast=32,

@@ -17,9 +17,7 @@ version of the CUDA graph that the card replays.
   optimizer state made before any step, Adam not capturable on the CPU.
 """
 
-import contextlib
 import copy
-import gc
 import os
 import types
 
@@ -35,8 +33,7 @@ from dr4sr_tpu.train.meta_trainer import MetaTrainer as JaxMetaTrainer
 from dr4sr_tpu.train.trainer import Trainer as JaxTrainer
 from dr4sr_tpu_torch.data.dataset import prepare_datasets
 from dr4sr_tpu_torch.data.synthetic import synthetic_config, write_synthetic_dataset
-from dr4sr_tpu_torch.ops import attention
-from dr4sr_tpu_torch.train.fused import StepGraphs, stack_batches, step_batches
+from dr4sr_tpu_torch.train.fused import stack_batches, step_batches
 from dr4sr_tpu_torch.train.meta_trainer import MetaTrainer
 from dr4sr_tpu_torch.train.trainer import Trainer, make_optimizer
 
@@ -433,41 +430,3 @@ def test_cli_carries_steps_per_dispatch(root, tmp_path, monkeypatch):
     assert isinstance(meta, MetaTrainer) and meta.config["train"]["steps_per_dispatch"] == 4
     assert meta.step_counter == len(meta.train_data.get_loader())
 
-
-def test_capture_without_garbage_collection_and_its_counts_taken_back(monkeypatch):
-    """``StepGraphs._capture`` with torch's CUDA graph replaced by a fake:
-    the trainer's generator is registered before the capture; no garbage
-    collection runs during it (one that frees a graph left in a reference
-    cycle invalidates the capture) and collection is back on after it; the
-    attention counters lose what the captured steps counted, which the
-    replays add instead."""
-    seen = {}
-
-    class FakeGraph:
-        def register_generator_state(self, generator):
-            seen["registered"] = generator
-
-    @contextlib.contextmanager
-    def fake_capture(graph, pool=None, stream=None, capture_error_mode="global"):
-        seen["capture_error_mode"] = capture_error_mode
-        seen["collecting during capture"] = gc.isenabled()
-        yield
-
-    monkeypatch.setattr(torch.cuda, "CUDAGraph", FakeGraph)
-    monkeypatch.setattr(torch.cuda, "graph", fake_capture)
-    runner = StepGraphs.__new__(StepGraphs)
-    runner.generator, runner.pool, runner.stream = torch.Generator(), None, None
-    before = (attention.flash_attention_fwd.launches, attention.flash_attention_bwd.launches)
-
-    def step(batch):  # counts as the kernels' wrappers count
-        attention.flash_attention_fwd.launches += 2
-        attention.flash_attention_bwd.launches += 2
-        return batch["x"].sum()
-
-    captured = runner._capture(step, [{"x": torch.full((2,), float(i))} for i in range(3)])
-    assert seen == {"registered": runner.generator, "collecting during capture": False,
-                    "capture_error_mode": "thread_local"}
-    assert gc.isenabled()
-    assert (attention.flash_attention_fwd.launches, attention.flash_attention_bwd.launches) == before
-    assert captured.launches == (6, 6)
-    assert captured.losses.tolist() == [0.0, 2.0, 4.0]

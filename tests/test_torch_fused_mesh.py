@@ -20,13 +20,10 @@ same mesh.
   at N = 4 (``--cpu``): every rank trains and reports the same metrics.
 * ``fused.capture_refusal`` as a plain function: N > 1 is refused on the
   card over a gloo axis, and only there.
-* ``StepGraphs`` with a fake graph: the collectives counted during a
-  capture are taken back out of ``COUNTER`` and added at every replay.
 
 The ranks of one world size run in one spawn (``torch_dist_worker.fused_groups``).
 """
 
-import contextlib
 import copy
 
 import jax
@@ -43,8 +40,7 @@ from dr4sr_tpu.train.meta_trainer import MetaTrainer as JaxMetaTrainer
 from dr4sr_tpu_torch.convert import meta_params_from_jax, params_from_jax
 from dr4sr_tpu_torch.models import get_model_class
 from dr4sr_tpu_torch.modules.layers import MLP
-from dr4sr_tpu_torch.parallel.collectives import COUNTER, Axis
-from dr4sr_tpu_torch.train.fused import StepGraphs, capture_refusal
+from dr4sr_tpu_torch.train.fused import capture_refusal
 from torch_dist_parity import NUM_ITEMS, assert_params, jax_fused_steps, jax_restoring_plans
 from torch_meta_parity import CONFIG_DIR, weighted_draws
 from torch_one_thread import one_torch_thread  # noqa: F401  (autouse)
@@ -238,41 +234,3 @@ def test_capture_refused_only_on_the_card_over_gloo(device, backends, refused):
     if refused:
         assert "gloo" in why and "stages_through_host" in why
 
-
-def test_collectives_counted_at_each_replay(monkeypatch):
-    """``StepGraphs._capture`` and ``_replay`` with torch's CUDA graph
-    replaced by a fake: what the captured steps' collectives counted is
-    taken back out of ``COUNTER``, and every replay adds it once."""
-    replays = []
-
-    class FakeGraph:
-        def register_generator_state(self, generator):
-            pass
-
-        def replay(self):
-            replays.append(None)
-
-    monkeypatch.setattr(torch.cuda, "CUDAGraph", FakeGraph)
-    monkeypatch.setattr(torch.cuda, "graph",
-                        lambda *a, **k: contextlib.nullcontext())
-    runner = StepGraphs.__new__(StepGraphs)
-    runner.generator, runner.pool, runner.stream = torch.Generator(), None, None
-    data, model = Axis("data", None, 2, 0, (0, 1)), Axis("model", None, 2, 0, (0, 2))
-
-    def step(batch):  # counts as the collectives count
-        COUNTER.add("all_reduce", data, 40)
-        COUNTER.add("send", model, 8)
-        return batch["x"].sum()
-
-    COUNTER.reset()
-    COUNTER.add("all_reduce", data, 4)  # before the capture: stays
-    captured = runner._capture(step, [{"x": torch.full((2,), float(i))} for i in range(3)])
-    assert COUNTER.snapshot() == {"all_reduce:data": {"calls": 1, "bytes": 4}}
-    assert captured.collectives == ({("all_reduce", "data"): 3, ("send", "model"): 3},
-                                    {("all_reduce", "data"): 120, ("send", "model"): 24})
-    for _ in range(2):
-        assert runner._replay(captured).tolist() == [0.0, 2.0, 4.0]
-    assert len(replays) == 2
-    assert COUNTER.snapshot() == {"all_reduce:data": {"calls": 7, "bytes": 244},
-                                  "send:model": {"calls": 6, "bytes": 48}}
-    COUNTER.reset()

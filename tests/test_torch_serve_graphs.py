@@ -1,6 +1,6 @@
-"""``Recommender.recommend``'s CUDA graphs (``serve.py::_ChunkGraphs``)
-against the eager chain, to the bit, on the card; and on the CPU, the
-eager path, which builds no graph.
+"""``Recommender.recommend``'s CUDA graphs (``serve.py``, through
+``ops/graphs.py``) against the eager chain, to the bit, on the card; and on
+the CPU, the eager path, which builds no graph.
 
 The graphed path runs only on a CUDA device, so those tests are marked
 ``card`` and skip without one. The file imports no JAX and reads no
@@ -25,6 +25,7 @@ from dr4sr_tpu_torch.models import get_model_class
 from dr4sr_tpu_torch.models.base import RecModel
 from dr4sr_tpu_torch.models.fmlp import pre_pad_batch
 from dr4sr_tpu_torch.ops import attention
+from dr4sr_tpu_torch.ops.graphs import CudaGraphs
 from dr4sr_tpu_torch.utils.spans import SPANS
 
 # every registered model that serves (GNN encodes through the graph, MetaModel is a trainer)
@@ -120,7 +121,7 @@ def test_cpu_serves_eagerly_and_builds_no_graph(model, monkeypatch):
         raise AssertionError("a CUDA graph on the CPU")
 
     monkeypatch.setattr(torch.cuda, "CUDAGraph", refused)
-    monkeypatch.setattr(serve, "_ChunkGraphs", refused)
+    monkeypatch.setattr(serve, "CudaGraphs", refused)
     server = make_server(model, "cpu", num_items=40, max_seq_len=10, batch_size=4)
     hists = histories(9, num_items=40, max_seq_len=10, seed=1)  # three chunks, the last of one
     for k, exclude_seen in [(5, True), (5, True), (50, False), (5, True)]:
@@ -143,13 +144,13 @@ def card():
 def captures(monkeypatch):
     """The number of captures made, as a one-element list."""
     count = [0]
-    capture = serve._ChunkGraphs._capture
+    capture = CudaGraphs.capture
 
     def counted(self, *args):
         count[0] += 1
         return capture(self, *args)
 
-    monkeypatch.setattr(serve._ChunkGraphs, "_capture", counted)
+    monkeypatch.setattr(CudaGraphs, "capture", counted)
     return count
 
 

@@ -18,6 +18,18 @@ Phases, in order; any failure raises and the script exits nonzero:
 3b. the attention backward likewise, against
    ``flash_attention_bwd_reference``, and the whole ``FlashAttention`` path
    against autograd through ``mha_reference``;
+3c. the MoE layer's two row kernels (``csrc/moe_permute.cu``) through
+   ``dispatch_rows`` and ``combine_rows``, forward and backward, against
+   the plain chain of ``ops/moe_permute.py`` at deepseek-v2-lite-rec's
+   training shape (73,600 tokens, top-6, D 2,048, 8 held experts; folded
+   with the cell's 107 real positions of 200, and unfolded with a third of
+   the tokens masked), NaN in every row past the last group: the rows
+   moved bit for bit, the f32 sums bit for bit the slot-order sum and
+   within the reordering's rounding of the chain's; each kernel's device
+   time beside its byte bound, the chain's and ``index_select`` /
+   ``index_add_``'s, and a layer and step's row traffic (remat) through
+   both; both launch counters over a remat step of a 3-layer DeepSeekV2Rec
+   at the configuration's widths;
 4. serve: ``Recommender(device="cuda")`` answers three requests of 1,000
    histories on SASRec at the amazon-toys width (random weights from seed 0),
    through the kernels, and agrees with the same weights on the CPU route;
@@ -222,11 +234,13 @@ import torch
 import torch.nn.functional as F
 
 from dr4sr_tpu_torch import quickstart
+from dr4sr_tpu_torch.config import load_config
 from dr4sr_tpu_torch.convert import generator_params_from_jax
 from dr4sr_tpu_torch.data.dataset import prepare_datasets
 from dr4sr_tpu_torch.data.synthetic import markov_sequences, write_synthetic_dataset
 from dr4sr_tpu_torch.models.base import RecModel
 from dr4sr_tpu_torch.models.cl4srec import augment_views
+from dr4sr_tpu_torch.models.deepseek_v2 import DeepSeekV2Rec
 from dr4sr_tpu_torch.models.gnn import batch_graph, build_transition_graph
 from dr4sr_tpu_torch.models.iclrec import ICLRec
 from dr4sr_tpu_torch.models.sasrec import SASRec
@@ -239,7 +253,7 @@ from dr4sr_tpu_torch.modules.graph_augmentation import (
     propagate_mean,
     squared_distances,
 )
-from dr4sr_tpu_torch.ops import _build, attention
+from dr4sr_tpu_torch.ops import _build, attention, moe_permute
 from dr4sr_tpu_torch.ops.attention import (
     FlashAttention,
     flash_attention_bwd,
@@ -247,7 +261,7 @@ from dr4sr_tpu_torch.ops.attention import (
     flash_attention_fwd,
     mha_reference,
 )
-from dr4sr_tpu_torch.ops.graphs import CudaGraphs
+from dr4sr_tpu_torch.ops.graphs import LAUNCH_COUNTED, CudaGraphs
 from dr4sr_tpu_torch.regen.decode import (
     beam_decode_batch_cached,
     decode_dataset,
@@ -340,6 +354,21 @@ ATTENTION_CASES = [
 # encoder at decode (non-causal); neither takes a gradient
 FWD_ONLY_CASES = [("eval_f32", 2048, 2, 50, 50, 32, True, torch.float32),
                   ("regen_decode_f32", 1024, 2, 52, 52, 32, False, torch.float32)]
+
+# (name, tokens, top-k, D, held experts, real share of the tokens, fold):
+# the MoE layer's rows at deepseek-v2-lite-rec.train-long's shape (368
+# histories of 200 positions, 107 of them real on average, every real
+# token's 6 assignments on the 8 held experts, folded), then a third of the
+# tokens masked and the assignments to the other 56 experts held elsewhere
+MOE_ROWS_CASES = [
+    ("train_long", 368 * 200, 6, 2048, 8, 107 / 200, True),
+    ("third_masked_unfolded", 368 * 200, 6, 2048, 8, 2 / 3, False),
+]
+MOE_EXPERTS = 64
+# the launch counters over one remat training step of DeepSeekV2Rec at
+# configs/deepseekv2rec.yaml's widths, cut to 1 dense and 2 MoE layers
+MOE_LAYERS = 3
+MOE_BATCH = 8
 
 # the regenerator as scripts/pretrain_regenerator.py trains it and the
 # committed artifact holds it (trained on amazon-toys: K = 5, D = 64, 2
@@ -632,6 +661,174 @@ def check_attention_bwd(seed, name, b, h, lq, lk, dh, causal, dtype):
             "bound_by": bound_by, "timing": TIMING}
     log(f"kernel case bwd {json.dumps(case)}")
     return case
+
+
+def _moe_routing(gen, n, k, held, real, fold):
+    """``DeepSeekMoE.forward``'s grouping of random top-k assignments of n
+    tokens (a share ``real`` of them real, the rest pads routed nowhere):
+    order, back (its inverse permutation) and the held experts' group ends."""
+    real_token = torch.rand(n, generator=gen, device="cuda") < real
+    expert = torch.randint(0, MOE_EXPERTS, (n, k), generator=gen, device="cuda")
+    local = expert % held if fold else expert  # held: 0 .. held - 1
+    key = torch.where(real_token[:, None] & (local < held), local, held).flatten()
+    order = torch.argsort(key, stable=True)
+    ends = torch.searchsorted(key[order], torch.arange(1, held + 1, device="cuda")).to(
+        torch.int32)
+    back = torch.empty_like(order).scatter_(0, order, torch.arange(n * k, device="cuda"))
+    return order, back, ends
+
+
+def _slot_sum(rows, back, k, live):
+    """Each token's rows before ``live`` summed in f32 in slot order, as
+    ``sum_rows_kernel`` sums them."""
+    padded = torch.cat([rows.float(), rows.new_zeros(1, rows.shape[1], dtype=torch.float32)])
+    acc = torch.zeros(back.numel() // k, rows.shape[1], device=rows.device)
+    for j in range(k):
+        slot = back[j::k]
+        acc += padded[torch.where(slot < live, slot, rows.shape[0])]
+    return acc
+
+
+def _within_reordering(got, want, rows, back, k, live, what):
+    """|got - want| within what summing each token's k f32 terms in another
+    order can move it: 2·k·2⁻²⁴ of the sum of their magnitudes."""
+    err = (got - want).abs()
+    room = 2 * k * 2.0**-24 * _slot_sum(rows.float().abs(), back, k, live)
+    if (err > room).any():
+        raise AssertionError(f"{what}: the kernel's sum off the plain chain's by "
+                             f"{err.max().item()}, beyond the reordering's rounding")
+    return err.max().item()
+
+
+def check_moe_rows(seed, name, n, k, d, held, real, fold):
+    """Both MoE row kernels through ``dispatch_rows`` and ``combine_rows``,
+    forward and backward, against the plain chain (``*_plain``) with NaN in
+    every row past the last group of ys and of xs's gradient: the rows
+    moved (xs, the combine's gradient) bit for bit; the f32 sums (y, x's
+    gradient) finite, bit for bit each token's slot-order sum and within
+    the reordering's rounding of the plain chain's; then each kernel's
+    device time beside its byte bound, the plain chain's and the library's,
+    and one layer and step's row traffic (remat: the forward twice and the
+    backward) through the kernels and through the chain."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    order, back, ends = _moe_routing(gen, n, k, held, real, fold)
+    live = int(ends[-1])
+    bf16 = torch.bfloat16
+    x = torch.randn(n, d, generator=gen, device="cuda")
+    ys = torch.randn(n * k, d, generator=gen, device="cuda").to(bf16)
+    dxs = torch.randn(n * k, d, generator=gen, device="cuda").to(bf16)
+    ys[live:] = float("nan")
+    dxs[live:] = float("nan")
+    dy = torch.randn(n, d, generator=gen, device="cuda")
+    xg, yg = x.clone().requires_grad_(), ys.clone().requires_grad_()
+    xs = moe_permute.dispatch_rows(xg, order, back, k, ends, bf16)
+    y = moe_permute.combine_rows(yg, back, k, ends)
+    dx, dys = torch.autograd.grad((xs, y), (xg, yg), (dxs, dy))
+    xp, yp = x.clone().requires_grad_(), ys.clone().requires_grad_()
+    xs_plain = moe_permute.dispatch_rows_plain(xp, order, k, ends, bf16)
+    y_plain = moe_permute.combine_rows_plain(yp, back, k, ends)
+    dys_plain, = torch.autograd.grad(y_plain, yp, dy)
+    # the chain's own backward sums x's rows by bf16 atomics: its f32
+    # version (atomics, any order) is the one the kernel's f32 sum is held to
+    dx_plain, = torch.autograd.grad(
+        moe_permute.dispatch_rows_plain(xp, order, k, ends, torch.float32), xp,
+        dxs.float().nan_to_num(0.0))
+    if xs.dtype != bf16 or dys.dtype != bf16 or y.dtype != torch.float32 or dx.dtype != x.dtype:
+        raise AssertionError(f"moe rows {name}: dtypes {xs.dtype} {dys.dtype} {y.dtype} "
+                             f"{dx.dtype}")
+    if not (torch.equal(xs[:live], xs_plain[:live]) and torch.equal(dys[:live],
+                                                                    dys_plain[:live])):
+        raise AssertionError(f"moe rows {name}: scatter_rows's rows are not the plain chain's")
+    if not (torch.isfinite(y).all() and torch.isfinite(dx).all()):
+        raise AssertionError(f"moe rows {name}: a row past the last group reached a sum")
+    if not (torch.equal(y, _slot_sum(ys, back, k, live))
+            and torch.equal(dx, _slot_sum(dxs, back, k, live))):
+        raise AssertionError(f"moe rows {name}: sum_rows is not the slot-order f32 sum")
+    sum_err = max(_within_reordering(y, y_plain, ys, back, k, live, f"moe rows {name} y"),
+                  _within_reordering(dx, dx_plain, dxs, back, k, live, f"moe rows {name} dx"))
+    scatter_err = _max_err([xs[:live], dys[:live]], [xs_plain[:live], dys_plain[:live]])
+    del xs, y, dx, dys, xs_plain, y_plain, dys_plain, dx_plain, xp, yp
+
+    idx = order // k
+    xb = x.to(bf16)
+    with torch.no_grad():
+        scatter_ms = device_ms(lambda: moe_permute.scatter_rows(x, back, k, ends, bf16))
+        sum_ms = device_ms(lambda: moe_permute.sum_rows(ys, back, k, ends, torch.float32))
+        scatter_plain_ms = device_ms(
+            lambda: moe_permute.dispatch_rows_plain(x, order, k, ends, bf16))
+        sum_plain_ms = device_ms(lambda: moe_permute.combine_rows_plain(ys, back, k, ends))
+        # the chain's gather alone, and its backward: atomics into zeros
+        scatter_library_ms = device_ms(lambda: xb.index_select(0, idx))
+        sum_library_ms = device_ms(
+            lambda: torch.zeros(n, d, dtype=bf16, device="cuda").index_add_(0, idx, dxs))
+
+    def layer_step(dispatch, combine):
+        def step():
+            with torch.no_grad():  # the forward, which remat runs again
+                dispatch(x), combine(ys)
+            torch.autograd.grad((dispatch(xg), combine(yg)), (xg, yg), (dxs, dy))
+        return step
+
+    layer_step_ms = device_ms(layer_step(
+        lambda x: moe_permute.dispatch_rows(x, order, back, k, ends, bf16),
+        lambda ys: moe_permute.combine_rows(ys, back, k, ends)))
+    plain_layer_step_ms = device_ms(layer_step(
+        lambda x: moe_permute.dispatch_rows_plain(x, order, k, ends, bf16),
+        lambda ys: moe_permute.combine_rows_plain(ys, back, k, ends)))
+
+    # bytes the kernels cannot do without: the rows of tokens with a live
+    # slot read in f32 and the live rows written in bf16 (scatter); the
+    # live rows read in bf16 and every token's row written in f32 (sum);
+    # back read once by each
+    tokens_read = int((back.view(n, k) < live).any(dim=1).sum())
+    index_bytes = back.numel() * back.element_size()
+    scatter_bound, scatter_by = _bound(tokens_read * d * 4 + live * d * 2 + index_bytes, 0,
+                                       torch.float32)
+    sum_bound, sum_by = _bound(live * d * 2 + n * d * 4 + index_bytes, 0, torch.float32)
+    shared = {"case": name, "tokens": n, "real_tokens": tokens_read, "live_rows": live,
+              "rows": n * k, "k": k, "D": d, "held": held, "fold": fold,
+              "layer_step_ms": layer_step_ms, "plain_layer_step_ms": plain_layer_step_ms,
+              "timing": TIMING}
+    scatter = {**shared, "dtype": "float32 -> bfloat16", "max_abs_err": scatter_err,
+               "ms": scatter_ms, "plain_ms": scatter_plain_ms,
+               "library_ms": scatter_library_ms, "bound_ms": scatter_bound,
+               "bound_by": scatter_by}
+    summed = {**shared, "dtype": "bfloat16 -> float32", "max_abs_err": sum_err,
+              "ms": sum_ms, "plain_ms": sum_plain_ms, "library_ms": sum_library_ms,
+              "bound_ms": sum_bound, "bound_by": sum_by}
+    log(f"kernel case scatter_rows {json.dumps(scatter)}")
+    log(f"kernel case sum_rows {json.dumps(summed)}")
+    return scatter, summed
+
+
+def moe_row_launches():
+    """Both wrappers' launch counters, set to 0, over one remat training
+    step (forward, remat's forward, backward) of DeepSeekV2Rec at
+    configs/deepseekv2rec.yaml's widths, folded, cut to MOE_LAYERS layers:
+    one launch of each kernel a MoE layer and pass."""
+    cfg = load_config("DeepSeekV2Rec", "synthetic", overrides={
+        "model": {"num_hidden_layers": MOE_LAYERS, "fold_foreign_experts": True},
+        "data": {"max_seq_len": 200}})
+    items = 1000
+    module = DeepSeekV2Rec.build(cfg, items, generator=torch.Generator().manual_seed(0))
+    module = module.to("cuda")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    seqlen = torch.randint(1, 201, (MOE_BATCH,), generator=gen, device="cuda")
+    seq = torch.randint(1, items, (MOE_BATCH, 200), generator=gen, device="cuda")
+    seq = torch.where(torch.arange(200, device="cuda") < seqlen[:, None], seq, 0)
+    batch = {"in_item_id": seq, "seqlen": seqlen, "item_id": seq,
+             "valid": torch.ones(MOE_BATCH, dtype=torch.bool, device="cuda")}
+    neg = torch.randint(1, items, (MOE_BATCH, 200, 1), generator=gen, device="cuda")
+    moe_permute.dispatch_rows.launches = moe_permute.combine_rows.launches = 0
+    RecModel(cfg, module, items, 10).training_loss(batch, None, neg_id=neg).backward()
+    torch.cuda.synchronize()
+    got = {"dispatch_rows": moe_permute.dispatch_rows.launches,
+           "combine_rows": moe_permute.combine_rows.launches}
+    moe_layers = MOE_LAYERS - int(cfg["model"]["first_k_dense_replace"])
+    if got != {"dispatch_rows": 3 * moe_layers, "combine_rows": 3 * moe_layers}:
+        raise AssertionError(f"moe rows: a remat step of {moe_layers} MoE layers launched {got}")
+    log(f"moe rows launches over a remat step of {moe_layers} MoE layers: {json.dumps(got)}")
+    return got
 
 
 def serve(requests, card):
@@ -3474,14 +3671,14 @@ def dist_fused(card, workdir, result, fault=None, only=None):
 
 
 def _replay_uncounted():
-    """Fault: a replay adds its attention launches but not its collectives."""
+    """Fault: a replay adds its kernels' launches but not its collectives."""
     keep = CudaGraphs.replay
 
     def uncounted(self, key):
         captured = self.graphs[key]
         captured.graph.replay()
-        attention.flash_attention_fwd.launches += captured.launches[0]
-        attention.flash_attention_bwd.launches += captured.launches[1]
+        for name, n in captured.launches.items():
+            LAUNCH_COUNTED[name].launches += n
         return captured.outputs
 
     CudaGraphs.replay = uncounted
@@ -4581,6 +4778,8 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     fwd_cases = [check_attention(i, *c) for i, c in enumerate(ATTENTION_CASES + FWD_ONLY_CASES)]
     bwd_cases = [check_attention_bwd(i, *c) for i, c in enumerate(ATTENTION_CASES)]
+    moe_cases = [check_moe_rows(i, *c) for i, c in enumerate(MOE_ROWS_CASES)]
+    moe_launches = moe_row_launches()
     log(f"elapsed after phase 3: {time.perf_counter() - start:.1f}s")
 
     # 4. serve through the kernels
@@ -4644,7 +4843,20 @@ def main() -> int:
         **{key: bwd_cases[0][key] for key in keys},
         "sass_hmma": hmma["flash_attention_bwd"],
         "cases": bwd_cases,
-    }]
+    }, *({
+        "name": name,
+        "route": "cuda",
+        "source": "dr4sr_tpu_torch/ops/csrc/moe_permute.cu",
+        "replaces": None,  # the JAX package has no MoE layer
+        # the wrapper whose forward this kernel is; it counts its backward's
+        # kernel too
+        "counter": f"{wrapper}.launches",
+        "launches": moe_launches[wrapper],
+        "launches_by_path": {"moe_remat_step": moe_launches[wrapper]},
+        **{key: moe_cases[0][i][key] for key in keys},
+        "cases": [case[i] for case in moe_cases],
+    } for i, (name, wrapper) in enumerate((("scatter_rows", "dispatch_rows"),
+                                           ("sum_rows", "combine_rows"))))]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

@@ -28,17 +28,20 @@ On the device and without a host synchronisation (spans ``moe.route``,
    of its held expert, or ``experts_held`` for an expert held elsewhere
    (unless folded) or a masked (pad) token; one stable sort of the keys
    groups the assignments by expert, ``searchsorted`` gives each group's
-   end, and the tokens are gathered in that order. The buffer has N·k
-   rows, the most the held experts could be given, so no token is ever
-   dropped.
+   end, and the tokens are gathered in that order, cast to the compute
+   dtype (``ops/moe_permute.py::dispatch_rows``). The buffer has N·k rows,
+   the most the held experts could be given, so no token is ever dropped.
 2. experts: gate, up and down of the held experts as grouped products over
    those groups (``torch._grouped_mm`` with the device's group ends, in the
    autocast dtype); rows past the last group are never computed.
    Each row's hidden activation is multiplied by its weight before the
    down projection.
-3. combine: rows past the last group zeroed, the rows put back in (token,
-   slot) order and each token's k rows summed in f32, plus the shared
-   experts.
+3. combine: each token's rows in the groups summed in f32
+   (``ops/moe_permute.py::combine_rows``), plus the shared experts.
+
+No value of a row past the last group reaches the output or a gradient: on
+the CPU the plain chain zeroes those rows, on the card the kernels neither
+read them nor write their gradients.
 
 The load counters ``moe.assignments`` (per held expert) and ``moe.tokens``
 are added on the device while a profiler session is open.
@@ -53,6 +56,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from dr4sr_tpu_torch.modules.mla import SwiGLU, weight
+from dr4sr_tpu_torch.ops.moe_permute import combine_rows, dispatch_rows
 from dr4sr_tpu_torch.utils.spans import count, span
 
 
@@ -99,7 +103,7 @@ class DeepSeekMoE(nn.Module):
         """x [..., D]; ``token_mask`` [...] bool, False for a token (a pad
         position) that no routed expert takes."""
         shape = x.shape
-        x = x.reshape(-1, shape[-1])
+        x = x.reshape(-1, shape[-1]).contiguous()
         n, k, held = x.shape[0], self.top_k, self.experts_held
         with span("moe.route"):
             with torch.autocast(x.device.type, enabled=False):
@@ -118,20 +122,20 @@ class DeepSeekMoE(nn.Module):
             order = torch.argsort(key, stable=True)  # assignment i of the groups is order[i]
             ends = torch.searchsorted(key[order], torch.arange(
                 1, held + 1, device=x.device, dtype=key.dtype)).to(torch.int32)
-            live = (torch.arange(n * k, device=x.device) < ends[-1])[:, None]
-            xs = torch.where(live, x.to(_compute_dtype(x)).index_select(0, order // k), 0)
+            # assignment a is row back[a] of the groups
+            back = torch.empty_like(order).scatter_(0, order, torch.arange(
+                n * k, device=x.device))
+            xs = dispatch_rows(x, order, back, k, ends, _compute_dtype(x))
             count("moe.assignments", torch.diff(ends, prepend=ends.new_zeros(1)))
             count("moe.tokens", (token_mask if token_mask is not None
                                  else x.new_ones(n, dtype=torch.bool)).sum())
         with span("moe.experts"):
             # a row past the last group takes no weight (nor gradient: its
             # hidden activation is undefined)
-            row_w = torch.where(live[:, 0], w.flatten()[order], 0.0)
+            live = torch.arange(n * k, device=x.device) < ends[-1]
+            row_w = torch.where(live, w.flatten()[order], 0.0)
             ys = grouped_swiglu(xs, row_w, self.w_gate, self.w_up, self.w_down, ends)
         with span("moe.combine"):
             # back to (token, slot) order, each token's k rows summed in f32
-            back = torch.empty_like(order).scatter_(0, order, torch.arange(
-                n * k, device=x.device))
-            ys = torch.where(live, ys, 0).index_select(0, back).view(n, k, -1)
-            y = ys.sum(dim=1, dtype=torch.float32) + self.shared(x)
+            y = combine_rows(ys, back, k, ends) + self.shared(x)
         return y.reshape(shape)

@@ -31,7 +31,7 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 # every kernel source of the package, by name (csrc/<name>.cu)
-KERNELS = ("flash_attention_fwd", "flash_attention_bwd")
+KERNELS = ("flash_attention_fwd", "flash_attention_bwd", "moe_permute")
 
 
 def _nvcc() -> str:

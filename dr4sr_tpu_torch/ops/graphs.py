@@ -17,9 +17,10 @@ static inputs and passes ``fn``, a closure over them with no arguments;
   it, as every later call does, on the current stream. The graphs are
   replayed one at a time, so no graph's memory is in use while another
   runs;
-* the attention kernels' launch counters and the collectives' counter
-  (``parallel/collectives.py::COUNTER``) read what ran: what a capture
-  counted is taken back out, and each replay adds it once;
+* the kernels' launch counters (:data:`LAUNCH_COUNTED`) and the
+  collectives' counter (``parallel/collectives.py::COUNTER``) read what
+  ran: what a capture counted is taken back out, and each replay adds it
+  once;
 * a graph reads its inputs and the weights by address: a value changed in
   place is seen, and whoever rebinds one drops the graphs
   (:meth:`CudaGraphs.watch` does so for a module's weights).
@@ -35,14 +36,18 @@ from typing import Any, Callable, Dict, Hashable, NamedTuple, Optional, Sequence
 
 import torch
 
-from dr4sr_tpu_torch.ops import attention
+from dr4sr_tpu_torch.ops import attention, moe_permute
 from dr4sr_tpu_torch.parallel.collectives import COUNTER
+
+# the kernel wrappers whose ``launches`` count their kernels' launches, by name
+LAUNCH_COUNTED = {f.__name__: f for f in (attention.flash_attention_fwd,
+                                          attention.flash_attention_bwd,
+                                          moe_permute.dispatch_rows, moe_permute.combine_rows)}
 
 
 def _counts():
-    """The attention kernels' launch counters and the collectives' counts."""
-    return ((attention.flash_attention_fwd.launches, attention.flash_attention_bwd.launches),
-            COUNTER.counts())
+    """The kernels' launch counters by wrapper and the collectives' counts."""
+    return {name: f.launches for name, f in LAUNCH_COUNTED.items()}, COUNTER.counts()
 
 
 def _since(before: dict, after: dict) -> dict:
@@ -67,7 +72,7 @@ def _bindings(slots: tuple) -> tuple:
 class _Captured(NamedTuple):
     graph: "torch.cuda.CUDAGraph"
     outputs: Any  # fn()'s outputs, rewritten by every replay
-    launches: Tuple[int, int]  # attention (forward, backward) launches in one replay
+    launches: dict  # launches in one replay by LAUNCH_COUNTED's name, where not 0
     collectives: Tuple[dict, dict]  # calls and bytes by (kind, axis) in one replay
 
 
@@ -136,21 +141,22 @@ class CudaGraphs:
         finally:
             if collecting:
                 gc.enable()
-        (fwd, bwd), (calls, nbytes) = _counts()
+        launches, (calls, nbytes) = _counts()
         # capture ran nothing: what the wrappers and collectives counted
         # runs at each replay
-        (fwd0, bwd0), counts0 = before
-        attention.flash_attention_fwd.launches, attention.flash_attention_bwd.launches = fwd0, bwd0
+        launches0, counts0 = before
+        for name, n in launches0.items():
+            LAUNCH_COUNTED[name].launches = n
         COUNTER.restore(counts0)
-        self.graphs[key] = _Captured(graph, outputs, (fwd - fwd0, bwd - bwd0),
+        self.graphs[key] = _Captured(graph, outputs, _since(launches0, launches),
                                      (_since(counts0[0], calls), _since(counts0[1], nbytes)))
 
     def replay(self, key: Hashable) -> Any:
         """One replay of ``key``'s graph on the current stream; its outputs."""
         captured = self.graphs[key]
         captured.graph.replay()
-        attention.flash_attention_fwd.launches += captured.launches[0]
-        attention.flash_attention_bwd.launches += captured.launches[1]
+        for name, n in captured.launches.items():
+            LAUNCH_COUNTED[name].launches += n
         COUNTER.add_counts(captured.collectives)
         return captured.outputs
 

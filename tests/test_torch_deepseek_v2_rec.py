@@ -4,8 +4,10 @@ on the same seeded weights: the forward, the loss and every gradient leaf;
 the expert shares of a MoE layer adding up to the whole layer; the folded
 layer (``fold_foreign_experts``) as a whole layer of repeated experts; YaRN's
 frequencies and scale by hand; pad positions leaving the real ones alone;
-no token dropped at the largest load; the load counters; the CLI's two
-steps and ``Recommender``'s top-k."""
+no token dropped at the largest load; the load counters; the rows past
+the last group reaching no output or gradient, and the plain dispatch and
+combine (``ops/moe_permute.py``) as the chain they replaced, bit for bit;
+the CLI's two steps and ``Recommender``'s top-k."""
 
 import glob
 import math
@@ -15,11 +17,14 @@ import numpy as np
 import pytest
 import torch
 import torch_deepseek_v2_reference as ref
+import torch_moe_rows
 
 from dr4sr_tpu_torch.models.base import RecModel
 from dr4sr_tpu_torch.models.deepseek_v2 import DeepSeekV2Rec
 from dr4sr_tpu_torch.modules.mla import yarn_inv_freq, yarn_mscale
+from dr4sr_tpu_torch.modules import moe
 from dr4sr_tpu_torch.modules.moe import DeepSeekMoE
+from dr4sr_tpu_torch.ops import moe_permute
 from dr4sr_tpu_torch.utils import spans
 
 ROPE = dict(type="yarn", factor=40, original_max_position_embeddings=4096, beta_fast=32,
@@ -174,6 +179,79 @@ def test_load_counters_count_each_forward_once_under_remat():
     assert int(counts["moe.tokens"]) == moe_layers * real
     assert counts["moe.assignments"].shape == (TINY["n_routed_experts_held"],)
     assert 0 < counts["moe.assignments"].sum() <= moe_layers * real * 6
+
+
+GROUPED_SWIGLU = moe.grouped_swiglu
+
+
+def _layer_and_grads(layer, x, mask, dtype=None):
+    """The layer's output on x and the gradients of x and of every weight
+    from one backward, under CPU autocast to ``dtype`` if given."""
+    x = x.detach().clone().requires_grad_()
+    layer.zero_grad(set_to_none=True)
+    with torch.autocast("cpu", dtype=dtype or torch.float32, enabled=dtype is not None):
+        y = layer(x, mask)
+    y.float().pow(2).sum().backward()
+    return y.detach(), {"x": x.grad, **{k: p.grad for k, p in layer.named_parameters()}}
+
+
+@pytest.mark.parametrize("fold,dtype", [(False, None), (True, None), (True, torch.bfloat16)])
+def test_rows_past_the_last_group_reach_no_output_or_gradient(monkeypatch, fold, dtype):
+    """NaN planted in every row past the last group of xs and of the grouped
+    products' output, and of their gradients: the layer's output and every
+    gradient stay finite and equal an unplanted run's, bit for bit."""
+    layer = DeepSeekMoE(32, 16, 6, 16, 2, 4, 4, False, 1.0, torch.Generator().manual_seed(7),
+                        fold_foreign=fold)
+    x = torch.randn(3, 9, 32, generator=torch.Generator().manual_seed(8))
+    mask = torch.rand(3, 9, generator=torch.Generator().manual_seed(9)) >= 1 / 3
+    runs = {}
+    for plant in (False, True):
+        seen = []
+        monkeypatch.setattr(moe, "grouped_swiglu", torch_moe_rows.planted_grouped_swiglu(
+            GROUPED_SWIGLU, seen, plant))
+        runs[plant] = _layer_and_grads(layer, x, mask, dtype)
+        assert 0 < int(seen[0][-1]) < 27 * 6  # rows to plant in, and rows that run
+    (y0, g0), (y1, g1) = runs[False], runs[True]
+    assert torch.isfinite(y1).all() and torch.equal(y0, y1)
+    assert set(g1) == set(g0) and all(g is not None for g in g1.values())
+    for k in g0:
+        assert torch.isfinite(g1[k]).all() and torch.equal(g0[k], g1[k]), k
+
+
+def _old_chain(x, ys, order, k, ends, dtype):
+    """The MoE layer's row chain before ``ops/moe_permute.py``, inline."""
+    n = x.shape[0]
+    live = (torch.arange(n * k) < ends[-1])[:, None]
+    xs = torch.where(live, x.to(dtype).index_select(0, order // k), 0)
+    back = torch.empty_like(order).scatter_(0, order, torch.arange(n * k))
+    y = torch.where(live, ys, 0).index_select(0, back).view(n, k, -1)
+    return xs, y.sum(dim=1, dtype=torch.float32)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_plain_dispatch_and_combine_are_the_old_chain_bit_for_bit(dtype):
+    """``dispatch_rows`` and ``combine_rows`` on CPU tensors: the output and
+    the gradients of the chain they replaced in ``DeepSeekMoE.forward``, bit
+    for bit, a third of the tokens masked."""
+    n, k, d = 17, 6, 24
+    order, back, ends = torch_moe_rows.routing(n, k, 4, seed=11)
+    gen = torch.Generator().manual_seed(12)
+    x = torch.randn(n, d, generator=gen)
+    ys = torch.randn(n * k, d, generator=gen).to(dtype)
+    ys[int(ends[-1]):] = float("nan")  # rows past the last group: undefined
+    dxs, dy = torch.randn(n * k, d, generator=gen).to(dtype), torch.randn(n, d, generator=gen)
+    outs = []
+    for new in (False, True):
+        xl, yl = x.clone().requires_grad_(), ys.clone().requires_grad_()
+        if new:
+            xs = moe_permute.dispatch_rows(xl, order, back, k, ends, dtype)
+            y = moe_permute.combine_rows(yl, back, k, ends)
+        else:
+            xs, y = _old_chain(xl, yl, order, k, ends, dtype)
+        torch.autograd.backward([xs, y], [dxs, dy])
+        outs.append((xs, y, xl.grad, yl.grad))
+    for old, new in zip(*outs):
+        assert old.dtype == new.dtype and torch.equal(old, new)
 
 
 def test_yarn_frequencies_and_scale_by_hand():

@@ -4,8 +4,9 @@ its capture and the stream calls:
 
 * a capture registers the given generators, runs with garbage collection
   off (on again after it) and errors on this thread's unsafe calls only;
-  what it counted (the attention kernels' launches, the collectives' calls
-  and bytes) is taken back out, and every replay adds it once;
+  what it counted (the attention and MoE row kernels' launches, the
+  collectives' calls and bytes) is taken back out, and every replay adds
+  it once;
 * each key runs eagerly on the side stream, then is captured, then
   replayed; keys that share a warm key (a trainer's kind at every group
   length) capture at once;
@@ -24,7 +25,8 @@ import pytest
 import torch
 
 from dr4sr_tpu_torch.ops import attention, graphs
-from dr4sr_tpu_torch.ops.graphs import CudaGraphs
+from dr4sr_tpu_torch.ops.graphs import LAUNCH_COUNTED, CudaGraphs
+from dr4sr_tpu_torch.ops.moe_permute import combine_rows, dispatch_rows
 from dr4sr_tpu_torch.parallel.collectives import COUNTER, Axis
 
 
@@ -105,7 +107,7 @@ def test_capture_without_garbage_collection_and_its_counts_taken_back(cuda_fakes
                     "capture_error_mode": "thread_local"}
     assert gc.isenabled()
     assert (attention.flash_attention_fwd.launches, attention.flash_attention_bwd.launches) == before
-    assert captured.launches == (6, 6)
+    assert captured.launches == {"flash_attention_fwd": 6, "flash_attention_bwd": 6}
     assert captured.outputs.tolist() == [0.0, 2.0, 4.0]
 
 
@@ -155,7 +157,7 @@ def test_forward_only_capture_restores_every_counter(cuda_fakes):
     runner.capture((20, True), score)
     assert (attention.flash_attention_fwd.launches, attention.flash_attention_bwd.launches) == before
     assert COUNTER.snapshot() == {"all_reduce:data": {"calls": 1, "bytes": 4}}
-    assert runner.graphs[(20, True)].launches == (2, 0)
+    assert runner.graphs[(20, True)].launches == {"flash_attention_fwd": 2}
     assert runner.graphs[(20, True)].collectives == ({}, {})
     for _ in range(3):
         scores, items = runner.replay((20, True))
@@ -164,6 +166,30 @@ def test_forward_only_capture_restores_every_counter(cuda_fakes):
     assert COUNTER.snapshot() == {"all_reduce:data": {"calls": 1, "bytes": 4}}
     assert items.tolist() == [0, 1, 2, 3]
     COUNTER.reset()
+
+
+def test_moe_row_launches_counted_at_each_replay(cuda_fakes):
+    """The MoE layer's row kernels (``ops/moe_permute.py``) as the attention
+    kernels: what a capture counted is taken back out of
+    ``dispatch_rows.launches`` and ``combine_rows.launches``, and each
+    replay adds it once."""
+    runner = CudaGraphs("cpu")
+    dispatch_rows.launches += 5  # an earlier eager step's
+    before = {name: f.launches for name, f in LAUNCH_COUNTED.items()}
+
+    def layer():  # forward and backward, as the wrappers count them
+        dispatch_rows.launches += 2
+        combine_rows.launches += 2
+        return torch.ones(2)
+
+    runner.capture("step", layer)
+    assert {name: f.launches for name, f in LAUNCH_COUNTED.items()} == before
+    assert runner.graphs["step"].launches == {"dispatch_rows": 2, "combine_rows": 2}
+    for _ in range(3):
+        runner.replay("step")
+    assert {name: f.launches for name, f in LAUNCH_COUNTED.items()} == {
+        **before, "dispatch_rows": before["dispatch_rows"] + 6,
+        "combine_rows": before["combine_rows"] + 6}
 
 
 def test_each_key_warms_then_captures_then_replays(cuda_fakes):
